@@ -1,10 +1,13 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile   # where the time goes, instead
 
 Runs from the repo root and needs one CUDA card; it exits non-zero, with no
 result line, when torch sees no card or the repo is not beside it. It
-imports nothing of JAX and nothing of the JAX package's device code.
+imports nothing of JAX and nothing of the JAX package: the host code
+(index, config) comes through trinity_tpu_torch, the corpus and queries
+through bench.py.
 
 Phases (each prints its own lines; any failure raises, so the exit code is
 non-zero):
@@ -15,20 +18,36 @@ non-zero):
    library, compiled from native/trinity_host.cpp into the same directory;
 3. corpus and traffic: the bench deployment — bench.py's 1,048,576-doc,
    524,288-term corpus (built by bench's own builder, cached under the
-   build directory), its 120-query generator with seed SEED+1, and the
-   baseline engine (baseline/engine.cpp) on the same corpus; the slice's
-   traffic is the 102 non-phrase queries;
+   build directory), its 120-query generator with seed SEED+1 (102
+   boolean queries, 12 bigram and 6 trigram phrases), and the baseline
+   engine (baseline/engine.cpp) on the same corpus;
 4. each kernel against its plain torch version on the card, at the shapes
-   the main path gives it (freq/offset tiles bit-equal, scores and
-   sub-block maxima within 2 ulp), with median times from CUDA events;
-5. the slice: Executor(seg, "cuda"), warmup, pipelined launch_batch /
-   finish_batch QPS (median of 3 loops of 5 reps), blocking search()
-   p50/p99 (median of 3 passes), top-10 parity against the baseline engine
-   (must be 102/102), the kernels' launch counts (each > 0) and the
-   port's device bytes.
+   the main path gives it (freq/offset tiles and position words
+   bit-equal, scores and sub-block maxima within 2 ulp), with median
+   times from CUDA events: K1 and K4 on the first 8-term chunk of their
+   hot caches over all windows, K4 also on the bigram group's uncached
+   cells, K2 and K3 on the largest flat group and the OR-of-AND group;
+5. the main path: Executor(seg, "cuda"), warmup, pipelined launch_batch /
+   finish_batch QPS over the 120 queries and over each part (median of 3
+   loops of 5 reps), blocking search() p50/p99 for each part (median of 3
+   passes), top-10 parity against the baseline engine (must be 120/120),
+   the kernels' launch counts (each > 0) and the port's device bytes;
+6. the lazy phrase path: a second executor with use_posmask=False runs the
+   18 phrases (parity 18/18, the decode kernel launched);
+7. compound phrases: 4 queries built from the bench's phrase pairs
+   ("a b" c, "a b" OR c, c NOT "a b", ("a b" c) OR d) on the card equal
+   the port's CPU executor on the same segment (the baseline engine has
+   no compound-phrase syntax).
 
 The last lines: one JSON object {"kernels": [...]}, the nvidia-smi line
 (name, power limit), and {"ok": true, "device": {...}}.
+
+With --profile it runs phases 1-3 and then, in place of 4-7, the
+measurement behind PERF.md's "Where the time goes": the host split of a
+blocking batch, the device busy share of pipelined batches and their top
+kernels (torch.profiler), and each group's device time by function (CUDA
+events), on the posmask and the lazy phrase paths. It prints no result
+line.
 """
 
 import json
@@ -117,11 +136,11 @@ def phase_corpus():
     if base is None:
         raise RuntimeError("baseline engine failed to build or run")
     base_topk = bench.load_topk_dump(base["topk_path"])
-    keep = [i for i, line in enumerate(id_lines) if not line.startswith("P")]
+    phrase = [line.startswith("P") for line in id_lines]
     log(f"[corpus] baseline engine {base['qps']:.1f} qps single-core "
-        f"({time.perf_counter() - t0:.1f}s); traffic {len(keep)} of "
-        f"{len(queries)} queries (phrases left out)")
-    return seg, [queries[i] for i in keep], [base_topk[i] for i in keep]
+        f"({time.perf_counter() - t0:.1f}s); traffic {len(queries)} "
+        f"queries ({sum(phrase)} phrases)")
+    return seg, queries, base_topk, phrase
 
 
 def cuda_ms(fn):
@@ -174,6 +193,7 @@ def phase_kernels(seg, queries):
 
     from trinity_tpu_torch import Executor
     from trinity_tpu_torch.ops import fusedscore as fs
+    from trinity_tpu_torch.ops import posmask as pm
     from trinity_tpu_torch.ops import postings as po
 
     ex = Executor(seg, device="cuda")
@@ -239,38 +259,55 @@ def phase_kernels(seg, queries):
             name=name, source="trinity_tpu_torch/csrc/fusedscore.cu",
             replaces=f"trinity_tpu/ops/fusedscore.py:{line}",
             max_abs_err=err, ms=ms, plain_ms=plain)
+
+    # K4: the first 8-term chunk of the posmask hot cache over all
+    # windows, then the bench bigram group's uncached cells
+    PW = ex._pw_words
+    tids = sorted(ex._pos_hot, key=ex._pos_hot.get)[:8]
+    bigram = next(g for g in groups if g.kind == "posph" and g.T == 2)
+    k4 = {}
+    for what, (cs, cn) in (
+            ("hot chunk", po.compute_cells(seg, tids)),
+            ("bigram group", (bigram.arrays["cs"], bigram.arrays["cn"]))):
+        args = (ex.bmeta, ex.planes, ex.hit_pw, ex.hit_off, put(cs),
+                put(cn), PW)
+        got = pm.materialize_posmask_tiles(*args)
+        want = pm.materialize_posmask_tiles_ref(*args)
+        torch.cuda.synchronize()
+        compare((got,), (want,), exact=True)
+        k4[what] = (cuda_ms(lambda: pm.materialize_posmask_tiles(*args)),
+                    cuda_ms(lambda: pm.materialize_posmask_tiles_ref(*args)))
+        log(f"[kernels] K4 posmask {what} (W={seg.n_windows}, "
+            f"M={cs.shape[1]}, PW={PW}, {int(cn.sum())} blocks, "
+            f"{int((want != 0).sum())} nonzero words): bit-exact; "
+            f"{k4[what][0]:.4f} ms vs plain {k4[what][1]:.4f} ms")
+    rows["posmask"] = dict(
+        name="materialize_posmask_tiles",
+        source="trinity_tpu_torch/csrc/posmask.cu",
+        replaces="trinity_tpu/ops/posmask.py:303",
+        max_abs_err=0.0, ms=k4["hot chunk"][0], plain_ms=k4["hot chunk"][1])
     del ex, groups
     torch.cuda.empty_cache()
     return rows
 
 
-def phase_slice(seg, queries, base_topk):
-    import numpy as np
-    import torch
-
-    import bench
-    from trinity_tpu_torch import Executor
-    from trinity_tpu_torch.utils import kernels
-
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    ex = Executor(seg, device="cuda")
-    w = ex.warmup(queries, k=10)
-    log(f"[slice] executor + warmup of {len(queries)} queries "
-        f"{time.perf_counter() - t0:.2f}s (warmup {w['seconds']:.2f}s)")
-
-    def qps_loop(reps=5):
-        t = time.perf_counter()
-        h = ex.launch_batch(queries, k=10)
-        for _ in range(reps - 1):
-            nxt = ex.launch_batch(queries, k=10)
-            ex.finish_batch(h)
-            h = nxt
+def qps(ex, queries, reps=5):
+    """Queries a second over `reps` pipelined launch_batch/finish_batch
+    rounds (the next batch is launched before the last one is finished)."""
+    t = time.perf_counter()
+    h = ex.launch_batch(queries, k=10)
+    for _ in range(reps - 1):
+        nxt = ex.launch_batch(queries, k=10)
         ex.finish_batch(h)
-        return reps * len(queries) / (time.perf_counter() - t)
+        h = nxt
+    ex.finish_batch(h)
+    return reps * len(queries) / (time.perf_counter() - t)
 
-    loops = [qps_loop() for _ in range(3)]
-    ex.search(queries[0], k=10)
+
+def latency(ex, queries):
+    """Median over 3 passes of the p50 and p99 of blocking search(), ms."""
+    import numpy as np
+
     p50s, p99s = [], []
     for _ in range(3):
         lat = []
@@ -280,46 +317,290 @@ def phase_slice(seg, queries, base_topk):
             lat.append(time.perf_counter() - t)
         p50s.append(np.percentile(np.array(lat) * 1e3, 50))
         p99s.append(np.percentile(np.array(lat) * 1e3, 99))
-    ours = ex.search_batch(queries, k=10)
-    torch.cuda.synchronize()
-    launches = dict(kernels.launches)
+    return float(np.median(p50s)), float(np.median(p99s))
 
+
+def parity(what, queries, base_topk, ours):
+    """Top-10 agreement with the baseline engine; raises on a mismatch."""
+    import bench
+
+    bad = [i for i, (b, o) in enumerate(zip(base_topk, ours))
+           if not bench.topk_agree(b, [(r.doc_id, r.score) for r in o])]
+    log(f"[{what}] top-10 parity vs baseline engine "
+        f"{len(queries) - len(bad)}/{len(queries)}")
+    for i in bad:
+        log(f"[{what}]   MISMATCH {queries[i]!r}: baseline {base_topk[i][:3]} "
+            f"ours {[(r.doc_id, r.score) for r in ours[i][:3]]}")
+    if bad:
+        raise RuntimeError(f"{what}: top-10 parity failed on {len(bad)} queries")
+    if sum(1 for o in ours if o) < len(queries) // 2:
+        raise RuntimeError(f"{what}: most queries returned nothing")
+
+
+def phase_slice(seg, queries, base_topk, phrase):
+    import numpy as np
+    import torch
+
+    from trinity_tpu_torch import Executor
+    from trinity_tpu_torch.utils import kernels
+
+    parts = {
+        "boolean": [q for q, p in zip(queries, phrase) if not p],
+        "phrase": [q for q, p in zip(queries, phrase) if p],
+    }
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ex = Executor(seg, device="cuda")
+    w = ex.warmup(queries, k=10)
+    log(f"[slice] executor + warmup of {len(queries)} queries "
+        f"{time.perf_counter() - t0:.2f}s (warmup {w['seconds']:.2f}s)")
+    loops = [qps(ex, queries) for _ in range(3)]
     log(f"[slice] QPS {float(np.median(loops)):.2f} (loops "
         f"{', '.join(f'{x:.2f}' for x in loops)}), pipelined "
         f"launch_batch/finish_batch, {len(queries)} queries x 5 reps")
-    log(f"[slice] search() p50 {float(np.median(p50s)):.3f} ms, p99 "
-        f"{float(np.median(p99s)):.3f} ms (median of 3 passes)")
-    bad = [i for i, (b, o) in enumerate(zip(base_topk, ours))
-           if not bench.topk_agree(b, [(r.doc_id, r.score) for r in o])]
-    log(f"[slice] top-10 parity vs baseline engine "
-        f"{len(queries) - len(bad)}/{len(queries)}")
-    for i in bad:
-        log(f"[slice]   MISMATCH {queries[i]!r}: baseline {base_topk[i][:3]} "
-            f"ours {[(r.doc_id, r.score) for r in ours[i][:3]]}")
-    if bad:
-        raise RuntimeError(f"top-10 parity failed on {len(bad)} queries")
-    if sum(1 for o in ours if o) < len(queries) // 2:
-        raise RuntimeError("most queries returned nothing")
+    for name, qs in parts.items():
+        part = [qps(ex, qs) for _ in range(3)]
+        p50, p99 = latency(ex, qs)
+        log(f"[slice] {name} ({len(qs)} queries): QPS "
+            f"{float(np.median(part)):.2f} (loops "
+            f"{', '.join(f'{x:.2f}' for x in part)}); search() p50 "
+            f"{p50:.3f} ms, p99 {p99:.3f} ms (median of 3 passes)")
+    ours = ex.search_batch(queries, k=10)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    parity("slice", queries, base_topk, ours)
+    for name, flag in (("boolean", False), ("phrase", True)):
+        n = sum(1 for p in phrase if p == flag)
+        log(f"[slice]   {name}: {n}/{n}")
     log(f"[slice] kernel launches in the main path: {launches}")
-    if not all(launches[k] > 0 for k in ("decode", "flat", "tape")):
+    if not all(launches[k] > 0 for k in ("decode", "flat", "tape",
+                                          "posmask")):
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     log(f"[slice] device bytes {ex.device_bytes} (segment "
-        f"{ex.bmeta.nbytes + ex.planes.nbytes}, hot planes "
-        f"{ex.tf_planes.nbytes} for {len(ex._hot)} terms); peak allocated "
-        f"{torch.cuda.max_memory_allocated()}")
+        f"{nb(ex.bmeta, ex.planes)}, positions {nb(ex.hit_pw, ex.hit_off)}, "
+        f"hot planes {nb(ex.tf_planes)} for {len(ex._hot)} terms, posmask "
+        f"cache {nb(ex.pos_planes)} for {len(ex._pos_hot)} terms, PW "
+        f"{ex._pw_words}); peak allocated {torch.cuda.max_memory_allocated()}")
     return launches
 
 
+def phase_lazy(seg, queries, base_topk, phrase):
+    """The 18 phrases on the lazy path (use_posmask=False)."""
+    import torch
+
+    from trinity_tpu_torch import Executor, configure, get_config
+    from trinity_tpu_torch.utils import kernels
+
+    qs = [q for q, p in zip(queries, phrase) if p]
+    base = [b for b, p in zip(base_topk, phrase) if p]
+    torch.cuda.empty_cache()
+    saved = get_config().use_posmask
+    configure(use_posmask=False)
+    try:
+        kernels.reset_launches()
+        ex = Executor(seg, device="cuda")
+        t0 = time.perf_counter()
+        ours = ex.search_batch(qs, k=10)
+        first = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        t0 = time.perf_counter()
+        ex.search_batch(qs, k=10)
+        again = time.perf_counter() - t0
+        kinds = sorted({g.kind for g in ex.plan_batch(qs)})
+    finally:
+        configure(use_posmask=saved)
+    log(f"[lazy] {len(qs)} phrases as groups {kinds}: first batch "
+        f"{first:.3f}s, again {again:.3f}s; launches {launches}")
+    parity("lazy", qs, base, ours)
+    if kinds != ["lazyph"] or launches["decode"] == 0:
+        raise RuntimeError(f"the lazy path did not run: {kinds} {launches}")
+    del ex
+    torch.cuda.empty_cache()
+
+
+def phase_compound(seg, queries, phrase):
+    """Compound phrases on the card against the port's CPU executor."""
+    import numpy as np
+
+    from trinity_tpu_torch import Executor
+    from trinity_tpu_torch.utils import kernels
+
+    df = lambda t: int(seg.term_df[seg.term_id(t)])
+    members = [q.strip('"').split() for q, p in zip(queries, phrase) if p]
+    # the bigram with the rarest member keeps the CPU side quick; c, the
+    # most common phrase member, meets it; d is another bigram's member
+    pairs = sorted((m for m in members if len(m) == 2),
+                   key=lambda ab: min(map(df, ab)))
+    (a, b), d = pairs[0], pairs[1][0]
+    c = max((t for m in members for t in m if t not in (a, b, d)), key=df)
+    qs = [f'"{a} {b}" {c}', f'"{a} {b}" OR {c}', f'{c} NOT "{a} {b}"',
+          f'("{a} {b}" {c}) OR {d}']
+    out, kinds = [], []
+    for dev in ("cuda", "cpu"):
+        ex = Executor(seg, device=dev)
+        kinds.append([(g.kind, g.ctx["fcaps"] is not None)
+                      for g in ex.plan_batch(qs)])
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out.append(ex.search_batch(qs, k=10))
+        log(f"[compound] {dev}: {time.perf_counter() - t0:.3f}s, launches "
+            f"{kernels.launches}")
+        if dev == "cuda":
+            launches = dict(kernels.launches)
+    if any(k != ("phrase", True) for k in kinds[0]) or kinds[0] != kinds[1]:
+        raise RuntimeError(f"compound groups took another route: {kinds}")
+    if launches["decode"] == 0:
+        raise RuntimeError(f"the compound path did not decode: {launches}")
+    for q, g, w in zip(qs, *out):
+        if [r.doc_id for r in g] != [r.doc_id for r in w]:
+            raise RuntimeError(f"compound {q!r}: ids differ from the CPU")
+        np.testing.assert_allclose([r.score for r in g],
+                                   [r.score for r in w], rtol=RTOL, atol=0)
+    log(f"[compound] {len(qs)}/{len(qs)} equal the CPU executor "
+        f"(hits {[len(g) for g in out[0]]}): {qs}")
+    if sum(1 for g in out[0] if g) < 3:
+        raise RuntimeError("compound queries returned nothing")
+
+
+# device functions the executor calls, timed one by one by --profile
+PROFILED = ("materialize_freq_tiles", "fused_flat_score_tiles",
+            "fused_score_tiles", "materialize_posmask_tiles",
+            "phrase_freq_from_masks", "exact_window_topk", "topk_lowest_index",
+            "bound_select_candidates", "compact_mask", "verify_phrases_device")
+
+
+def profile_groups(ex, queries, tag):
+    """Each group of one batch, run alone 5 times: median host time of its
+    launch, device time of the whole group and of each PROFILED function
+    it calls (CUDA events, summed over its calls)."""
+    import numpy as np
+    import torch
+
+    from trinity_tpu_torch.exec import executor as exmod
+
+    spans = []
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            spans.append((name, s, e))
+            return out
+        return run
+
+    saved = {n: getattr(exmod, n) for n in PROFILED}
+    for n, fn in saved.items():
+        setattr(exmod, n, timed(n, fn))
+    try:
+        for g in ex.plan_batch(queries):
+            reps = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                spans.clear()
+                s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0 = time.perf_counter()
+                s.record()
+                ex.run_group(g, 10, "bm25")
+                e.record()
+                host = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+                fns = {}
+                for n, a, b in spans:
+                    fns[n] = fns.get(n, 0.0) + a.elapsed_time(b)
+                reps.append((s.elapsed_time(e), host, fns))
+            med = lambda xs: float(np.median(xs))
+            ctx = {c: g.ctx[c] for c in ("C", "C2", "fcaps") if c in g.ctx}
+            log(f"[profile] {tag} {g.kind} B={g.B} T={g.T} "
+                f"cells={g.arrays['cs'].shape[1]} {ctx}: device "
+                f"{med([r[0] for r in reps]):.4f} ms, host launch "
+                f"{med([r[1] for r in reps]):.4f} ms; " + ", ".join(
+                    f"{n} {med([r[2].get(n, 0.0) for r in reps]):.4f}"
+                    for n in reps[0][2]))
+    finally:
+        for n, fn in saved.items():
+            setattr(exmod, n, fn)
+
+
+def phase_profile(seg, queries, phrase):
+    """Where the time goes (--profile): the host split of one blocking
+    batch, the device busy share of 10 pipelined batches (torch.profiler
+    kernel time over wall time) with its top kernels, and each group's
+    device time by function, for the mix, its boolean and phrase parts,
+    and the phrases on the lazy path."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from trinity_tpu_torch import Executor, configure, get_config
+
+    parts = {
+        "mix": queries,
+        "boolean": [q for q, p in zip(queries, phrase) if not p],
+        "phrase": [q for q, p in zip(queries, phrase) if p],
+    }
+    ex = Executor(seg, device="cuda")
+    ex.warmup(queries, k=10)
+    for name, qs in parts.items():
+        split = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            groups = ex.plan_batch(qs)
+            t1 = time.perf_counter()
+            outs = [ex.run_group(g, 10, "bm25") for g in groups]
+            t2 = time.perf_counter()
+            ex.finish_batch((groups, outs, len(qs), 10, "bm25"))
+            split.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+        plan, launch, finish = np.median(np.array(split) * 1e3, axis=0)
+        log(f"[profile] {name} ({len(qs)} queries), one blocking batch: "
+            f"plan {plan:.4f} ms, launch {launch:.4f} ms, finish "
+            f"{finish:.4f} ms (medians of 5)")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = 10 * len(qs) / qps(ex, qs, reps=10) * 1e3
+        dev = lambda ev: getattr(ev, "self_device_time_total",
+                                 getattr(ev, "self_cuda_time_total", 0))
+        evs = sorted(prof.key_averages(), key=dev, reverse=True)
+        busy = sum(dev(ev) for ev in evs) / 1e3
+        log(f"[profile] {name}: 10 pipelined batches, wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms, busy share {busy / wall:.4f}")
+        for ev in evs[:5]:
+            log(f"[profile]   {dev(ev) / 1e3:.3f} ms in {ev.count}: "
+                f"{ev.key[:90]}")
+    profile_groups(ex, queries, "mix")
+    del ex
+    torch.cuda.empty_cache()
+    saved = get_config().use_posmask
+    configure(use_posmask=False)
+    try:
+        ex = Executor(seg, device="cuda")
+        ex.warmup(parts["phrase"], k=10)
+        profile_groups(ex, parts["phrase"], "lazy")
+    finally:
+        configure(use_posmask=saved)
+
+
 def main():
+    if sys.argv[1:] not in ([], ["--profile"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--profile]")
     phase_device()
     import torch
 
     phase_build()
-    seg, queries, base_topk = phase_corpus()
+    seg, queries, base_topk, phrase = phase_corpus()
+    if sys.argv[1:] == ["--profile"]:
+        phase_profile(seg, queries, phrase)
+        log(nvidia_smi())
+        return
     rows = phase_kernels(seg, queries)
-    launches = phase_slice(seg, queries, base_topk)
+    launches = phase_slice(seg, queries, base_topk, phrase)
+    phase_lazy(seg, queries, base_topk, phrase)
+    phase_compound(seg, queries, phrase)
     out = [dict(rows[k], route="cuda", launches=launches[k])
-           for k in ("decode", "flat", "tape")]
+           for k in ("decode", "flat", "tape", "posmask")]
     log(json.dumps({"kernels": out}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ the fixture, not at import). On a machine with a card, run them with
 (``--noconftest``: tests/conftest.py imports jax, which the port's GPU
 machine need not have; this file imports no jax.)
 
-Tolerances: freq and offset tiles, and top-k ids, must be bit-equal;
+Tolerances: freq, offset and position-word tiles, and top-k ids, must be
+bit-equal;
 scores and sub-block maxima within 2 ulp (rtol=2.4e-7, atol=0), the
 repo's engine-vs-oracle bound — the kernels keep the plain version's f32
 operation order, so in practice they agree exactly.
@@ -26,6 +27,10 @@ from trinity_tpu_torch.ops.fusedscore import (
     fused_flat_score_tiles_ref,
     fused_score_tiles,
     fused_score_tiles_ref,
+)
+from trinity_tpu_torch.ops.posmask import (
+    materialize_posmask_tiles,
+    materialize_posmask_tiles_ref,
 )
 from trinity_tpu_torch.ops.postings import (
     compute_cells,
@@ -165,3 +170,86 @@ def test_main_path_counts_every_kernel(dev, seg, hot_cfg):
     ex = Executor(seg, dev)
     ex.warmup(QUERIES)
     assert all(kernels.launches[k] > 0 for k in ("decode", "flat", "tape"))
+    pex = Executor(make_phrase_segment(), dev)
+    assert pex._posmask_enabled
+    pex.warmup(['"t0 t1"', '"t5 t6 t7"'])
+    assert kernels.launches["posmask"] > 0
+
+
+def make_phrase_segment(seed=13, n_docs=40_000, vocab=60):
+    """Short docs (positions below 128) over 3 windows with forced
+    bigrams and trigrams, for the posmask path."""
+    rng = np.random.default_rng(seed)
+    zipf = 1.0 / np.arange(1, vocab + 1)
+    zipf /= zipf.sum()
+    docs = []
+    for d in range(n_docs):
+        toks = list(rng.choice(vocab, size=int(rng.integers(3, 40)), p=zipf))
+        if d % 3 == 0:
+            toks[1:3] = [0, 1]
+        if d % 7 == 0:
+            toks[0:3] = [5, 6, 7]
+        docs.append(toks)
+    bounds = np.zeros(n_docs + 1, np.int64)
+    np.cumsum([len(d) for d in docs], out=bounds[1:])
+    sess = SegmentIndexSession()
+    sess.bulk_index_ids(np.arange(n_docs) * 3 + 1, np.concatenate(docs),
+                        bounds, [f"t{i}" for i in range(vocab)])
+    return sess.commit()
+
+
+@pytest.mark.parametrize("pw_words", [4, 11])
+def test_posmask_kernel_bit_exact(dev, seg, pw_words):
+    """K4 against its plain version: heavy-freq runs, a sparse term, an
+    unknown term, a zeroed cell; 11 words take two register passes."""
+    df = np.asarray(seg.term_df)
+    tids = [int(t) for t in np.argsort(-df)[:4]] + [
+        seg.term_id("t400"), seg.term_id("t401"), -1, int(np.argsort(-df)[9])]
+    cs, cn = compute_cells(seg, tids)
+    cn[:, 7] = 0
+    cs, cn = (torch.from_numpy(a).to(dev) for a in (cs, cn))
+    ex = Executor(seg, dev)
+    before = kernels.launches["posmask"]
+    args = (ex.bmeta, ex.planes, ex.hit_pw, ex.hit_off, cs, cn, pw_words)
+    got = materialize_posmask_tiles(*args)
+    want = materialize_posmask_tiles_ref(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["posmask"] == before + 1
+    assert torch.equal(got, want)
+    assert (want[:, :, -1] != 0).any()
+
+
+PHRASE_QUERIES = [
+    '"t0 t1"', '"t5 t6 t7"', '"t1 t0"', '"t6 t7"', '"t3 t3"', '"t50 t51"',
+    '"t0 t1" OR t9', 't2 "t0 t1"', 't4 NOT "t5 t6"', '("t0 t1" t3) OR t8',
+    "t0 t1", "t2 OR t40",
+]
+
+
+@pytest.mark.parametrize("path", ["posmask", "lazy", "host"])
+def test_phrase_executor_cuda_equals_cpu(dev, path):
+    """Every phrase route (compound groups ride along in each) on the card
+    equals the CPU executor: ids exact, scores within 2 ulp."""
+    pseg = make_phrase_segment()
+    cfg = get_config()
+    saved = (cfg.use_posmask, cfg.posmask_min_df)
+    configure(use_posmask=path == "posmask", posmask_min_df=3000)
+    try:
+        out, kinds = [], []
+        for d in (dev, "cpu"):
+            ex = Executor(pseg, d)
+            ex.set_masked_local_docs(np.arange(5, pseg.n_docs, 13))
+            if path == "host":
+                ex._phrase_fcaps = lambda *a: None
+            kinds.append({g.kind for g in ex.plan_batch(PHRASE_QUERIES)})
+            out.append(ex.search_batch(PHRASE_QUERIES, k=10))
+    finally:
+        configure(use_posmask=saved[0], posmask_min_df=saved[1])
+    assert kinds[0] == kinds[1] and "phrase" in kinds[0]
+    assert {"posmask": "posph", "lazy": "lazyph",
+            "host": "lazyhost"}[path] in kinds[0]
+    for q, g, w in zip(PHRASE_QUERIES, *out):
+        assert [r.doc_id for r in g] == [r.doc_id for r in w], q
+        np.testing.assert_allclose([r.score for r in g],
+                                   [r.score for r in w], rtol=RTOL, atol=0)
+    assert sum(1 for w in out[1] if w) >= len(PHRASE_QUERIES) - 2

@@ -11,8 +11,9 @@ deletion registry installed, the port's search_batch and search equal
 ids exactly, scores within 2 ulp (rtol=2.4e-7, atol=0). The mix covers
 flat AND / OR / NOT / k-of-n / optional groups, an OR-of-AND (tape kernel)
 group and one >8-slot query (dense path). state_from_numpy of the JAX
-executor's device arrays equals the port's own state, and a phrase query
-raises NotImplementedError.
+executor's device arrays equals the port's own state, and a pure phrase and
+a phrase inside an AND, batched with a boolean query, equal the JAX
+executor's results.
 """
 
 import numpy as np
@@ -141,8 +142,16 @@ def test_state_from_numpy_equals_own_state(port, jax_run):
         assert torch.equal(st[name], t), name
 
 
-def test_phrase_raises(port):
-    with pytest.raises(NotImplementedError, match="phrase path"):
-        port.search('"t0 t1"')
-    with pytest.raises(NotImplementedError):
-        port.search_batch(["t0 t1", '"t2 t3" t4'])
+def test_phrase_raises(port, jax_run):
+    """The two phrase calls run, on the posmask and compound paths, and
+    equal the JAX executor. (The name is kept from when the port refused
+    phrases, so the test keeps its history across runs.)"""
+    jx, _ = jax_run
+    _assert_same(_pairs(port.search('"t0 t1"')), _pairs(jx.search('"t0 t1"')),
+                 '"t0 t1"')
+    batch = ["t0 t1", '"t2 t3" t4']
+    assert {g.kind for g in port.plan_batch(batch)} == {"flat", "phrase"}
+    for q, g, w in zip(batch, port.search_batch(batch),
+                       jx.search_batch(batch)):
+        assert len(w) > 0, q
+        _assert_same(_pairs(g), _pairs(w), q)

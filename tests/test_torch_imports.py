@@ -2,7 +2,9 @@
 
 - In a subprocess where ``import jax`` fails (``sys.modules["jax"] =
   None``), ``import trinity_tpu_torch`` works and a tiny CPU search runs
-  and agrees with the oracle.
+  and agrees with the oracle, phrases included (posmask, lazy and
+  compound paths), and every module of the port imports.
+- No source file of the port imports jax or ``trinity_tpu.ops``.
 - ``Executor(seg, device="cuda")`` raises when torch sees no card, and a
   kernel build without nvcc raises instead of falling back.
 """
@@ -37,10 +39,17 @@ for d, text in docs.items():
     sess.insert(p)
     oc.add(d, text.split())
 ex = Executor(sess.commit(), device="cpu")
-for q in ("a c", "a OR d", "c NOT b", "(a b) OR (c d)"):
+qs = ("a c", "a OR d", "c NOT b", "(a b) OR (c d)", '"a b"', '"b c" OR d',
+      '"c a" a')
+for q in qs:
     got = [(r.doc_id, r.score) for r in ex.search(q, k=3)]
     want = oracle_search(oc, parse_query(q).root, k=3)
     assert [d for d, _ in got] == [d for d, _ in want], (q, got, want)
+trinity_tpu_torch.configure(use_posmask=False)
+ex = Executor(ex.seg, device="cpu")
+assert [r.doc_id for r in ex.search('"a b"')] == [1]
+import trinity_tpu_torch.exec.phrases, trinity_tpu_torch.ops.posmask
+import trinity_tpu_torch.ops.select, trinity_tpu_torch.utils.kernels
 assert sys.modules["jax"] is None
 print("OK")
 """
@@ -53,6 +62,45 @@ def test_port_imports_and_searches_without_jax():
     )
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().endswith("OK")
+
+
+def test_port_sources_import_no_jax_and_no_reference_ops():
+    """No module of the port imports jax or a trinity_tpu.ops module (the
+    reference's ops modules hold its Pallas kernels)."""
+    import ast
+
+    pkg = os.path.join(REPO, "trinity_tpu_torch")
+    # the port's sources; _build holds build outputs, not sources
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+             if f.endswith(".py")
+             and "_build" not in os.path.relpath(d, pkg).split(os.sep)]
+    assert len(files) >= 12
+    for path in files:
+        for node in ast.walk(ast.parse(open(path).read())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] != "jax", (path, n)
+                assert not n.startswith("trinity_tpu.ops"), (path, n)
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the host code through trinity_tpu_torch: it
+    imports neither jax nor any trinity_tpu module."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom)]
+    assert "trinity_tpu_torch" in names
+    for n in names:
+        assert n.split(".")[0] not in ("jax", "trinity_tpu"), n
 
 
 def _tiny_segment():

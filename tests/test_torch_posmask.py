@@ -1,0 +1,148 @@
+"""Port posmask (trinity_tpu_torch/ops/posmask.py) against the JAX package.
+
+- materialize_posmask_tiles_ref (the plain torch version of the CUDA K4
+  kernel) is bit-equal to the JAX materialize_posmask_tiles, run in
+  interpret mode as the JAX package's own tests run it on the CPU, on a
+  one-window segment with forced phrases and a three-window segment whose
+  docs reach position 120 (four words per doc), long same-term runs that
+  cross 128-value position groups, cached (zeroed) cells and an unknown
+  term. On CPU tensors the wrapper runs that plain version and counts no
+  kernel launch.
+- phrase_freq_from_masks equals the JAX function on random words (bit 31
+  set, shifts across word boundaries, a repeated member); its SWAR popcount
+  equals np.bitwise_count.
+Integer outputs: exact equality.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import trinity_tpu.ops.posmask as ref
+import trinity_tpu_torch.ops.posmask as port
+from trinity_tpu.exec import Executor as JaxExecutor
+from trinity_tpu.index.builder import SegmentIndexSession
+from trinity_tpu_torch import Executor
+from trinity_tpu_torch.ops.postings import compute_cells
+from trinity_tpu_torch.utils import kernels
+
+
+def phrased_segment():
+    """test_posmask.py's `phrased` corpus: 500 docs, forced bigrams,
+    trigrams and repeats."""
+    rng = np.random.default_rng(91)
+    sess = SegmentIndexSession()
+    zipf = 1.0 / np.arange(1, 31)
+    zipf /= zipf.sum()
+    for d in range(1, 501):
+        toks = [f"t{int(i)}" for i in rng.choice(30, size=int(rng.integers(6, 50)),
+                                                  p=zipf)]
+        r = rng.random()
+        if r < 0.3:
+            toks[2:4] = ["t0", "t1"]
+        if 0.2 < r < 0.5:
+            toks[0:3] = ["t5", "t6", "t7"]
+        if r > 0.8:
+            toks[1:3] = ["t2", "t2"]
+        p = sess.begin(d)
+        for pos, t in enumerate(toks, start=1):
+            p.insert(t, pos)
+        sess.insert(p)
+    return sess.commit()
+
+
+def multiwindow_segment():
+    """36,000 docs over three windows, 3-120 tokens each; every 97th doc
+    holds a run of 60-115 copies of t0 (position runs across groups)."""
+    rng = np.random.default_rng(5)
+    n_docs, vocab = 36_000, 40
+    zipf = 1.0 / np.arange(1, vocab + 1)
+    zipf /= zipf.sum()
+    docs = []
+    for d in range(n_docs):
+        n = int(rng.integers(3, 10)) if d % 11 else int(rng.integers(60, 121))
+        toks = list(rng.choice(vocab, size=n, p=zipf))
+        if d % 97 == 0:
+            toks = [0] * int(rng.integers(60, 116)) + toks[:5]
+        docs.append(toks)
+    bounds = np.zeros(n_docs + 1, np.int64)
+    np.cumsum([len(t) for t in docs], out=bounds[1:])
+    sess = SegmentIndexSession()
+    sess.bulk_index_ids(np.arange(n_docs) * 2 + 1, np.concatenate(docs),
+                        bounds, [f"t{i}" for i in range(vocab)])
+    return sess.commit()
+
+
+@pytest.fixture(scope="module", params=["phrased", "multiwindow"])
+def case(request):
+    seg = phrased_segment() if request.param == "phrased" else (
+        multiwindow_segment())
+    assert seg.positions_distinct
+    terms = ["t0", "t1", "t2", "t7", "t29", "zz", "t5", "t3"]
+    tids = [seg.term_id(t) for t in terms]
+    cs, cn = compute_cells(seg, tids)
+    cn[:, 6] = 0  # a cached member: its cell is zeroed
+    return seg, cs, cn
+
+
+def test_posmask_ref_bit_equal_to_jax(case):
+    seg, cs, cn = case
+    jx = JaxExecutor(seg)
+    PW = jx._pw_words
+    dpr, ppr, gor, need_pos, need_goff = jx._pos_cell_rows(cs, cn)
+    rpos = next(rb for rb in ref.RPOS_BUCKETS
+                if need_pos <= rb and need_goff <= ref.GOFF_ROWS[rb])
+    W, M = cs.shape
+    want = np.asarray(ref.materialize_posmask_tiles(
+        jnp.asarray(jx._bmeta_h), jnp.asarray(jx._planes_h),
+        jnp.asarray(jx._hit_pw_h), jnp.asarray(jx._hit_goff_h),
+        *(jnp.asarray(a) for a in (cs, cn, dpr, ppr, gor)),
+        n_windows=W, n_members=M, pw_words=PW, rpos_rows=rpos,
+        goff_rows=ref.GOFF_ROWS[rpos], interpret=True,
+    ))
+    ex = Executor(seg, "cpu")
+    assert ex._pw_words == PW
+    before = dict(kernels.launches)
+    got = port.materialize_posmask_tiles(
+        ex.bmeta, ex.planes, ex.hit_pw, ex.hit_off, torch.from_numpy(cs),
+        torch.from_numpy(cn), PW,
+    )
+    assert kernels.launches == before
+    assert got.dtype == torch.int32 and got.shape == (W, M, PW, 128, 128)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # non-trivial: bits set in the last word, and bit 31 somewhere
+    assert PW >= 2 and (want[:, :, -1] != 0).any() and (want < 0).any()
+    assert not want[:, 5:7].any()  # the unknown term and the zeroed cell
+
+
+def test_phrase_freq_from_masks_equals_jax():
+    rng = np.random.default_rng(8)
+    W, PW = 2, 3
+    words = rng.integers(-(1 << 31), 1 << 31, size=(4, W, PW, 128, 128),
+                         dtype=np.int64).astype(np.int32)
+    # dense ones so ANDs survive, and a repeated member
+    words[1] |= words[0]
+    words[2] = words[1]
+    for K in (2, 3, 4):
+        want = np.asarray(ref.phrase_freq_from_masks(jnp.asarray(words[:K]),
+                                                     K, PW))
+        got = port.phrase_freq_from_masks(torch.from_numpy(words[:K]), K, PW)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert want.max() > 0
+    # a sequence of member tensors, one passed twice, gives the same result
+    seq = [torch.from_numpy(words[0]), torch.from_numpy(words[0])]
+    np.testing.assert_array_equal(
+        port.phrase_freq_from_masks(seq, 2, PW).numpy(),
+        np.asarray(ref.phrase_freq_from_masks(
+            jnp.asarray(words[[0, 0]]), 2, PW)),
+    )
+
+
+def test_popcount_equals_numpy():
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 1 << 32, size=100_000, dtype=np.uint64)
+    x[:4] = [0, 1, 0xFFFFFFFF, 0x80000000]
+    got = port.popcount32(torch.from_numpy(x.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), np.bitwise_count(x))

@@ -1,7 +1,7 @@
 """trinity_tpu_torch — the PyTorch/CUDA port of trinity_tpu.
 
-This slice ports the boolean search path (AND / OR / NOT / k-of-n /
-OR-of-AND, BM25 / TF-IDF / Trivial top-k on one segment) to torch, with
+It ports ranked search on one segment (boolean AND / OR / NOT / k-of-n /
+OR-of-AND and exact phrases, BM25 / TF-IDF / Trivial top-k) to torch, with
 hand-written CUDA kernels for the H100 (``csrc/``). Host code — indexing,
 the query language, plan compilation, weights — is the JAX package's,
 imported as it is (it imports no JAX); the device side imports torch only.
@@ -16,11 +16,11 @@ Quick start::
         proxy.insert(token, pos)
     sess.insert(proxy)
     ex = Executor(sess.commit(), device="cuda")  # or "cpu"
-    for hit in ex.search("hello world", k=10):
+    for hit in ex.search('"brave new" OR world', k=10):
         print(hit.doc_id, hit.score)
 """
 
-from trinity_tpu.config import configure
+from trinity_tpu.config import configure, get_config
 from trinity_tpu.index.builder import SegmentIndexSession
 from trinity_tpu.index.format import SegmentData
 from trinity_tpu.query.parser import parse_query
@@ -36,6 +36,7 @@ __all__ = [
     "SegmentData",
     "SegmentIndexSession",
     "configure",
+    "get_config",
     "parse_query",
     "state_from_numpy",
 ]

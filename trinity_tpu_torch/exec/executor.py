@@ -1,30 +1,47 @@
-"""Query executor on one segment: boolean BM25/TF-IDF/Trivial top-k.
+"""Query executor on one segment: boolean and phrase BM25/TF-IDF/Trivial top-k.
 
-Counterpart of ``trinity_tpu/exec/executor.py`` for the boolean path of
-``search``/``search_batch``/``launch_batch``/``finish_batch``. Host planning
-is the reference's, imported as it is (``_plan_for_text``, ``_flatten_tape``,
-``_pad_T``, ``_pick_bucket``, ``config.batch_buckets``); the device side is
-torch plus the three CUDA kernels:
+Counterpart of ``trinity_tpu/exec/executor.py`` for ``search`` /
+``search_batch`` / ``launch_batch`` / ``finish_batch``. Host planning is
+the reference's, imported as it is (``_plan_for_text``, ``_flatten_tape``,
+``_pad_T``, ``_pick_bucket``, the phrase C/C2 buckets,
+``config.batch_buckets``); the device side is torch plus the four CUDA
+kernels. Groups of one plan shape share a launch:
 
-  - "flat" groups (AND/OR/NOT/k-of-n/optional, at most 8 slots): the flat
-    fused score kernel, structure as data (ops/fusedscore.py);
-  - "fused" groups (other trees with at most 8 used slots, e.g.
-    OR-of-AND): the tape fused score kernel;
-  - "dense" groups (more than 8 slots): the decode kernel, then the tape
-    evaluated in torch over the decoded tiles and a flat top-k.
+  - "flat" (AND/OR/NOT/k-of-n/optional, at most 8 slots): the flat fused
+    score kernel, structure as data (ops/fusedscore.py);
+  - "fused" (other boolean trees with at most 8 used slots): the tape
+    fused score kernel;
+  - "dense" (more than 8 slots): the decode kernel, the tape evaluated in
+    torch over the decoded tiles, a flat top-k;
+  - "posph" (pure phrases where positions are distinct per (term, doc)
+    and below 32 * posmask_max_words): the posmask kernel scatters each
+    distinct member's position words (or reads them from the posmask hot
+    cache), phrase freq = popcount(AND of shifted words) for every doc
+    (ops/posmask.py);
+  - "lazyph" (other pure phrases): the decode kernel with hit offsets, the
+    exact top-C2 candidates by min member freq (ops/select.py), position
+    verification on the device (exec/phrases.py), a top-k and a
+    `resolved` flag; an unresolved query reruns alone as a compound group;
+  - "phrase" (phrases inside boolean trees): the decode kernel with hit
+    offsets, the first C candidates per window of each phrase (pass A),
+    verification, the tape with the verified phrase tiles (pass C);
+  - "lazyhost" and "phrase" without a device cap (no positions stream, or
+    a member freq above the FCAP ladder): the same passes with the numpy
+    verifier between them.
 
-Every group launches on the current stream; ``launch_batch`` returns
-without synchronising and ``finish_batch`` copies the ids and scores back.
-Results rank by score desc, local docid asc — the top-k selections break
-ties toward the lower index explicitly (``topk_lowest_index``).
-
-Phrase plans raise NotImplementedError: the phrase path is not ported yet.
+Each group launches on the current stream. The boolean and posmask groups
+never wait for the device, so ``launch_batch`` can overlap the previous
+batch; groups that verify positions synchronise to compact the live
+candidates (and the host routes to copy them). ``finish_batch`` copies the
+ids and scores back. Results rank by score desc, local docid asc.
+Phrase groups are not padded to a batch bucket: eager torch compiles
+nothing per shape.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -35,7 +52,11 @@ from trinity_tpu.exec.executor import (
     SearchResult,
     _flatten_tape,
     _pad_T,
+    _phrase_c_bound,
+    _phrase_c_bucket,
+    _phrase_group_c2,
     _pick_bucket,
+    _pick_c2,
     _plan_for_text,
 )
 from trinity_tpu.index.format import SegmentData
@@ -43,8 +64,17 @@ from trinity_tpu.limits import TILE, WINDOW_SIZE
 from trinity_tpu.models.similarity import SIMILARITIES
 from trinity_tpu.plan.compile import compile_plan
 from trinity_tpu.query.parser import Query
+from trinity_tpu_torch.exec.phrases import (
+    collect_phrases,
+    fcap_bucket,
+    verify_phrase_candidates,
+    verify_phrases_device,
+)
+from trinity_tpu_torch.models.similarity import score_tile
 from trinity_tpu_torch.ops.fusedscore import (
     NEG_INF,
+    NSUB,
+    SUB_DOCS,
     eval_tape_tiles,
     exact_window_topk,
     fused_flat_score_tiles,
@@ -52,16 +82,27 @@ from trinity_tpu_torch.ops.fusedscore import (
     tape_used_slots,
     topk_lowest_index,
 )
+from trinity_tpu_torch.ops.posmask import (
+    POS_GUARD_ROWS,
+    materialize_posmask_tiles,
+    phrase_freq_from_masks,
+)
 from trinity_tpu_torch.ops.postings import (
     compute_cells,
     materialize_freq_tiles,
     pack_block_meta,
     pad_planes,
 )
+from trinity_tpu_torch.ops.select import (
+    bound_select_candidates,
+    compact_mask,
+    gather_cols,
+)
 
 # tapes reading more slots run the dense path (decode + torch tape eval)
 FUSED_MAX_SLOTS = 8
-HOT_CHUNK = 8  # terms per decode launch when building the hot-term planes
+HOT_CHUNK = 8  # terms per kernel launch when building the hot-term caches
+HOST_VERIFY_CHUNK = 2048  # candidates per step of the lazy host route
 
 __all__ = ["Executor", "SearchResult", "state_from_numpy"]
 
@@ -83,9 +124,12 @@ def state_from_numpy(arrays: dict, device) -> dict:
     port's tensors on `device`.
 
     Keys: "bmeta" (pack_block_meta, i32), "planes" (pad_planes, u32 — kept
-    as its i32 bit-view), "tf_planes" (hot-term planes, f32) and
-    "deleted_tiles" ((W, 128, 128) f32, 1.0 = masked). None stays None."""
-    dtypes = {"bmeta": np.int32, "planes": np.int32, "tf_planes": np.float32,
+    as its i32 bit-view), "hit_pw" (position planes, u32, as i32),
+    "hit_off" (position group offsets, i32), "tf_planes" (hot-term planes,
+    f32) and "deleted_tiles" ((W, 128, 128) f32, 1.0 = masked). None stays
+    None."""
+    dtypes = {"bmeta": np.int32, "planes": np.int32, "hit_pw": np.int32,
+              "hit_off": np.int32, "tf_planes": np.float32,
               "deleted_tiles": np.float32}
     out = {}
     for name, a in arrays.items():
@@ -110,51 +154,88 @@ def state_from_numpy(arrays: dict, device) -> dict:
 class Group:
     """One device launch of a batch: queries of one plan shape."""
 
-    kind: str  # "flat" | "fused" | "dense"
+    kind: str  # flat | fused | dense | posph | lazyph | lazyhost | phrase
     tape: Optional[tuple]  # None for flat groups (structure is data)
     members: list  # [(query index, CompiledPlan)]
-    T: int  # padded slots per query
-    B: int  # padded batch rows
-    arrays: dict  # host inputs: cs, cn, weights, cids[, flags, kmin]
+    T: int  # padded slots per query (posph: phrase members)
+    B: int  # batch rows (padded for the boolean kinds)
+    arrays: dict  # host inputs uploaded by run_group
+    ctx: dict = field(default_factory=dict)  # host-side phrase parameters
 
 
 class Executor:
     """Per-segment search session on one device (``"cuda"`` or ``"cpu"``).
 
-    The segment's block metadata and padded plane matrix are uploaded once.
-    The hot-term planes (highest-df terms' dense frequency planes, within
-    ``config.hot_cache_bytes``) are decoded at the first batch, by the
-    decode kernel, in chunks of 8 terms."""
+    The segment's block metadata, padded plane matrix and positions stream
+    are uploaded once. Two query-independent caches are built at the first
+    batch that reads them, by the kernels, in chunks of 8 terms: the
+    hot-term frequency planes (highest-df terms within
+    ``config.hot_cache_bytes``) and the posmask hot cache (highest-df terms
+    with df >= ``posmask_min_df`` within ``posmask_cache_bytes``)."""
 
     def __init__(self, seg: SegmentData, device):
         self.device = _resolve_device(device)
         self.seg = seg
+        hp = np.ascontiguousarray(seg.hit_planes, dtype=np.uint32)
         st = state_from_numpy(
-            {"bmeta": pack_block_meta(seg), "planes": pad_planes(seg.planes)},
+            {"bmeta": pack_block_meta(seg), "planes": pad_planes(seg.planes),
+             "hit_pw": np.vstack([hp.reshape(-1, TILE),
+                                  np.zeros((POS_GUARD_ROWS, TILE), np.uint32)]),
+             "hit_off": seg.hit_group_off.astype(np.int32)},
             self.device,
         )
         self.bmeta = st["bmeta"]
         self.planes = st["planes"]
-        self._deleted_tiles = None  # (W, 128, 128) f32, 1.0 = masked
-        self._tf_planes = None
-        self._hot: dict = {}
+        self.hit_pw = st["hit_pw"]
+        self.hit_off = st["hit_off"]
+        # the masked-documents registry (set_masked_local_docs) and the
+        # forms the paths read: host bool, device flat bool, f32 tiles
+        self._deleted_np = None
+        self._deleted = None
+        self._deleted_tiles = None
+        self._max_freq_cache: dict = {}
         cfg = get_config()
-        if cfg.hot_cache_bytes > 0 and seg.n_terms > 0:
-            cap = int(cfg.hot_cache_bytes // (seg.n_windows * TILE * TILE * 4))
-            if cap > 0:
-                df = np.asarray(seg.term_df)
-                order = np.argsort(-df, kind="stable")
-                order = order[df[order] >= cfg.hot_cache_min_df][:cap]
-                self._hot = {int(t): i for i, t in enumerate(order)}
+        self._tf_planes = None
+        self._hot = self._hot_terms(cfg.hot_cache_bytes, cfg.hot_cache_min_df,
+                                    seg.n_windows * TILE * TILE * 4)
+        # dense positional-bitmask phrase path: the segment's positions
+        # must be distinct per (term, doc) (else popcount is not the
+        # anchored count) and below 32 * posmask_max_words
+        self._pw_words = max(1, -(-(seg.max_position + 1) // 32))
+        self._posmask_enabled = bool(
+            cfg.use_posmask
+            and seg.positions_distinct
+            and self._pw_words <= cfg.posmask_max_words
+        )
+        self._pos_planes = None
+        self._pos_hot = (
+            self._hot_terms(cfg.posmask_cache_bytes, cfg.posmask_min_df,
+                            seg.n_windows * self._pw_words * TILE * TILE * 4)
+            if self._posmask_enabled else {}
+        )
+
+    def _hot_terms(self, budget: int, min_df: int, per_term: int) -> dict:
+        """Highest-df terms with df >= min_df that fit `budget` bytes at
+        `per_term` bytes each: {term id: cache row}."""
+        if budget <= 0 or self.seg.n_terms == 0:
+            return {}
+        cap = int(budget // per_term)
+        df = np.asarray(self.seg.term_df)
+        order = np.argsort(-df, kind="stable")
+        order = order[df[order] >= min_df][:cap]
+        return {int(t): i for i, t in enumerate(order)}
 
     @property
     def device_bytes(self) -> int:
-        """Bytes this executor holds on its device (segment arrays, the
-        hot-term planes once built, the deletion tiles)."""
-        ts = (self.bmeta, self.planes, self._tf_planes, self._deleted_tiles)
+        """Bytes this executor holds on its device (segment arrays and
+        positions stream, the hot-term caches once built, the deletion
+        masks)."""
+        ts = (self.bmeta, self.planes, self.hit_pw, self.hit_off,
+              self._tf_planes, self._pos_planes, self._deleted_tiles,
+              self._deleted)
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
-    # -------------------------------------------------- hot-term plane cache
+    # ---------------------------------------------------- hot-term caches
     @property
     def tf_planes(self) -> torch.Tensor:
         """(C, W, 128, 128) f32 frequency planes of the hot terms (a
@@ -180,6 +261,32 @@ class Executor:
             out[i : i + len(tids)] = tiles[:, : len(tids)].transpose(0, 1)
         return out
 
+    @property
+    def pos_planes(self) -> torch.Tensor:
+        """(W, C, PW, 128, 128) i32 position words of the posmask hot
+        terms (a (1, 1, 1, 1, 1) zero dummy when none qualify)."""
+        if self._pos_planes is None:
+            self._pos_planes = self._build_pos_planes()
+        return self._pos_planes
+
+    def _build_pos_planes(self) -> torch.Tensor:
+        if not self._pos_hot:
+            return torch.zeros((1,) * 5, dtype=torch.int32, device=self.device)
+        seg = self.seg
+        W, PW = seg.n_windows, self._pw_words
+        order = sorted(self._pos_hot, key=self._pos_hot.get)
+        out = torch.empty((W, len(order), PW, TILE, TILE), dtype=torch.int32,
+                          device=self.device)
+        for i in range(0, len(order), HOT_CHUNK):
+            tids = order[i : i + HOT_CHUNK]
+            cs, cn = compute_cells(seg, tids + [-1] * (HOT_CHUNK - len(tids)))
+            masks = materialize_posmask_tiles(
+                self.bmeta, self.planes, self.hit_pw, self.hit_off,
+                self._put(cs), self._put(cn), PW,
+            )  # (W, HOT_CHUNK, PW, 128, 128)
+            out[:, i : i + len(tids)] = masks[:, : len(tids)]
+        return out
+
     def _cids_for(self, tids, T: int) -> np.ndarray:
         """Per-slot hot-cache plane ids (length T, -1 = decode)."""
         out = np.full(T, -1, np.int32)
@@ -191,12 +298,16 @@ class Executor:
         """Install the masked-documents registry: local ids whose documents
         are shadowed by newer segments (None or empty clears it)."""
         if local_ids is None or len(local_ids) == 0:
-            self._deleted_tiles = None
+            self._deleted_np = self._deleted = self._deleted_tiles = None
             return
         W = self.seg.n_windows
-        m = np.zeros(W * WINDOW_SIZE, np.float32)
-        m[np.asarray(local_ids)] = 1.0
-        self._deleted_tiles = self._put(m.reshape(W, TILE, TILE))
+        m = np.zeros(W * WINDOW_SIZE, bool)
+        m[np.asarray(local_ids)] = True
+        self._deleted_np = m
+        self._deleted = self._put(m)
+        self._deleted_tiles = self._put(
+            m.reshape(W, TILE, TILE).astype(np.float32)
+        )
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without blocking the host: through
@@ -210,7 +321,7 @@ class Executor:
     # -------------------------------------------------------------- search
     def warmup(self, queries, k: int = 10, scorer: str = "bm25") -> dict:
         """Run every query once, serially (builds the kernels and the
-        hot-term planes before serving), then the whole list as one batch.
+        hot-term caches before serving), then the whole list as one batch.
         Returns {"variants", "seconds"}."""
         t0 = time.perf_counter()
         qs = list(queries)
@@ -230,14 +341,14 @@ class Executor:
 
     def search_batch(self, queries: Sequence, k: int = 10,
                      scorer: str = "bm25") -> List[List[SearchResult]]:
-        """Queries grouped by plan shape, each group one kernel launch."""
+        """Queries grouped by plan shape, each group one launch."""
         return self.finish_batch(self.launch_batch(queries, k, scorer))
 
-    def plan_batch(self, queries: Sequence,
-                   scorer: str = "bm25") -> List[Group]:
+    def plan_batch(self, queries: Sequence, scorer: str = "bm25",
+                   k: int = 10) -> List[Group]:
         """Host planning of a batch (the reference's ``launch_batch``
-        grouping): parse, group by shape, pad to the batch bucket, and
-        build each group's cell tables, weights and hot-cache ids."""
+        grouping and routing): parse, group by shape, route each phrase
+        group, and build each group's cell tables and weights."""
         seg = self.seg
         W = seg.n_windows
         plans = []
@@ -247,8 +358,6 @@ class Executor:
             else:
                 root = q.root if isinstance(q, Query) else q
                 plan = compile_plan(root) if root is not None else None
-            if plan is not None and plan.has_phrase:
-                raise NotImplementedError("phrase path: ROADMAP queue 1 item 5")
             plans.append(plan)
         model = SIMILARITIES[scorer]
         docs_cnt = seg.stats.docs_cnt
@@ -256,10 +365,19 @@ class Executor:
             int(seg.term_df[seg.term_id(t)]) if seg.term_id(t) >= 0 else 0
         )
         keyed: dict = {}
+        phrase_keyed: dict = {}
         for qi, plan in enumerate(plans):
             if plan is None:
                 continue
             key = plan.tape
+            if plan.has_phrase:
+                if key[0] == "phrase":
+                    # every same-shape phrase shares a posmask group; lazy
+                    # groups split by the query's own C2 bucket
+                    key = (key, "pos" if self._posmask_enabled
+                           else _phrase_group_c2(df_of, plan, key[1], k))
+                phrase_keyed.setdefault(key, []).append((qi, plan))
+                continue
             T = _pad_T(plan.n_slots)
             if (T <= FUSED_MAX_SLOTS
                     and _flatten_tape(key, plan.n_slots) is not None):
@@ -319,11 +437,24 @@ class Executor:
             if flat:
                 arrays.update(flags=flags, kmin=kmin)
             groups.append(Group(kind, tape, members, T, B, arrays))
+
+        ctx = dict(model=model, docs_cnt=docs_cnt, df_of=df_of)
+        for key, members in phrase_keyed.items():
+            if isinstance(key[0], str):  # compound: phrases inside a tree
+                groups.append(self._prep_phrase_compound(key, members, ctx))
+                continue
+            key = key[0]  # a pure phrase: (tape, "pos" | C2 bucket)
+            g = None
+            if self._posmask_enabled:
+                g = self._prep_phrase_pos(key, members, k, ctx)
+            if g is None:
+                g = self._prep_phrase_lazy(key, members, k, ctx)
+            groups.append(g)
         return groups
 
     def run_group(self, g: Group, k: int, scorer: str):
         """Launch one group; returns device (values (B, k) f32, local docids
-        (B, k) int64)."""
+        (B, k) int64, resolved (B,) bool for lazyph groups, else None)."""
         a = {n: self._put(v) for n, v in g.arrays.items()}
         seg = self.seg
         if g.kind == "flat":
@@ -332,62 +463,425 @@ class Executor:
                 a["flags"], a["kmin"], a["cids"], self.tf_planes, seg.n_docs,
                 self._deleted_tiles, scorer_name=scorer,
             )
-            return exact_window_topk(scores, rmax, k)
+            return (*exact_window_topk(scores, rmax, k), None)
         if g.kind == "fused":
             scores, rmax = fused_score_tiles(
                 self.bmeta, self.planes, a["cs"], a["cn"], a["weights"],
                 a["cids"], self.tf_planes, seg.n_docs, self._deleted_tiles,
                 tape=g.tape, scorer_name=scorer,
             )
-            return exact_window_topk(scores, rmax, k)
-        return self._run_dense(g, a, k, scorer)
+            return (*exact_window_topk(scores, rmax, k), None)
+        if g.kind == "lazyph":
+            return self._run_lazyph(g, a, k, scorer)
+        run = {"dense": self._run_dense, "posph": self._run_posph,
+               "lazyhost": self._run_lazyhost,
+               "phrase": self._run_compound}[g.kind]
+        return (*run(g, a, k, scorer), None)
+
+    def _live_docs(self):
+        """(W, 16384) bool: inside the segment and not masked."""
+        W = self.seg.n_windows
+        gid = torch.arange(W * WINDOW_SIZE, device=self.device)
+        live = gid < self.seg.n_docs
+        if self._deleted is not None:
+            live = live & ~self._deleted
+        return live.reshape(W, WINDOW_SIZE)
+
+    def _decode_batch(self, g: Group, a: dict, with_offsets=False):
+        """Decode every cell of a group: (B, W, T, 16384) f32 freqs (and
+        i32 hit offsets)."""
+        W, B, T = self.seg.n_windows, g.B, g.T
+        out = materialize_freq_tiles(self.bmeta, self.planes, a["cs"],
+                                     a["cn"], with_offsets=with_offsets)
+        view = lambda t: t.reshape(W, B, T, WINDOW_SIZE).transpose(0, 1)
+        return tuple(map(view, out)) if with_offsets else view(out)
 
     def _run_dense(self, g: Group, a: dict, k: int, scorer: str):
         """>8-slot tapes: decode every cell, evaluate the tape over the
         tiles in torch, one flat top-k (the reference's _build_batch_fn)."""
-        W, B, T = self.seg.n_windows, g.B, g.T
-        tiles = materialize_freq_tiles(self.bmeta, self.planes, a["cs"],
-                                       a["cn"])
-        freq = tiles.reshape(W, B, T, WINDOW_SIZE).transpose(0, 1)
+        B, T = g.B, g.T
+        freq = self._decode_batch(g, a)
         wts = a["weights"]
         mask, score = eval_tape_tiles(
             g.tape, {s: freq[:, :, s] for s in range(T)},
             lambda i: wts[:, i].reshape(B, 1, 1), scorer,
         )
-        gid = torch.arange(W * WINDOW_SIZE, device=self.device)
-        mask = mask & (gid < self.seg.n_docs).reshape(1, W, WINDOW_SIZE)
-        if self._deleted_tiles is not None:
-            mask = mask & (self._deleted_tiles == 0).reshape(1, W, WINDOW_SIZE)
-        scores = torch.where(mask, score, NEG_INF).reshape(B, -1)
-        return topk_lowest_index(scores, k)
+        scores = torch.where(mask & self._live_docs(), score, NEG_INF)
+        return topk_lowest_index(scores.reshape(B, -1), k)
 
+    # ------------------------------------------------------- phrase path
+    def _member_weights(self, key, members, ctx) -> np.ndarray:
+        """(B,) f32 weight of each member query's phrase node."""
+        model, docs_cnt, df_of = ctx["model"], ctx["docs_cnt"], ctx["df_of"]
+        return np.array(
+            [model.weight([df_of(t) for t in plan.weight_terms[key[2]]],
+                          docs_cnt) for _, plan in members],
+            np.float32,
+        )
+
+    def _cell_tables(self, members, T: int):
+        """(W, B*T) cell tables of a group's queries, T columns each."""
+        seg = self.seg
+        cs = np.zeros((seg.n_windows, len(members) * T), np.int32)
+        cn = np.zeros_like(cs)
+        for bi, (_, plan) in enumerate(members):
+            c_s, c_n = compute_cells(
+                seg, [seg.term_id(t) for t in plan.term_texts]
+            )
+            cs[:, bi * T : bi * T + plan.n_slots] = c_s
+            cn[:, bi * T : bi * T + plan.n_slots] = c_n
+        return cs, cn
+
+    def _prep_phrase_pos(self, key, members, k, ctx) -> Optional[Group]:
+        """Posmask group (the reference's ``_prep_phrase_pos``): the
+        members' distinct terms, `memidx` (query, member) -> distinct term,
+        and for each distinct term its posmask hot-cache row `cidx` (-1 when
+        uncached) and its column `kcol` of the kernel's output. The cell
+        tables hold the uncached terms only, with no bucket pad: the kernel
+        writes no cell that nothing reads. None (the lazy path runs) when no
+        member has a block and nothing is cached: the masks would all be
+        zero. The reference also fell back on a DMA-bucket overflow; the
+        CUDA kernel has no buckets (ops/posmask.py)."""
+        seg = self.seg
+        slots = key[1]
+        K = len(slots)
+        if k < 1 or K < 2:
+            return None
+        B = len(members)
+        tid_index: dict = {}
+        memidx = np.zeros((B, K), np.int32)
+        for bi, (_, plan) in enumerate(members):
+            for j, s in enumerate(slots):
+                tid = seg.term_id(plan.term_texts[s])
+                memidx[bi, j] = tid_index.setdefault(tid, len(tid_index))
+        cidx = np.array([self._pos_hot.get(int(t), -1) for t in tid_index],
+                        np.int32)
+        kcol = np.cumsum(cidx < 0) - 1
+        cs, cn = compute_cells(seg, [t for t, c in zip(tid_index, cidx)
+                                     if c < 0])
+        if not (cidx >= 0).any() and not cn.any():
+            return None
+        arrays = {"cs": cs, "cn": cn,
+                  "weights": self._member_weights(key, members, ctx)}
+        return Group("posph", key, members, K, B, arrays,
+                     dict(memidx=memidx, cidx=cidx, kcol=kcol))
+
+    def _run_posph(self, g: Group, a: dict, k: int, scorer: str):
+        """Position words of the group's terms (kernel, or the hot cache),
+        every doc's phrase freq per query, score, exact top-k (the
+        reference's ``_build_phrase_pos_fused``)."""
+        W, B, K, PW = self.seg.n_windows, g.B, g.T, self._pw_words
+        cidx, kcol = g.ctx["cidx"], g.ctx["kcol"]
+        masks = cache = None
+        if (cidx < 0).any():
+            masks = materialize_posmask_tiles(
+                self.bmeta, self.planes, self.hit_pw, self.hit_off, a["cs"],
+                a["cn"], PW,
+            )  # (W, uncached terms, PW, 128, 128)
+        if (cidx >= 0).any():
+            cache = self.pos_planes
+        member = lambda mi: (masks[:, int(kcol[mi])] if cidx[mi] < 0
+                             else cache[:, int(cidx[mi])])
+        dead = None if self._deleted is None else self._deleted.reshape(
+            W, TILE, TILE)
+        scores = torch.empty((B, W, TILE, TILE), device=self.device)
+        for b in range(B):
+            freq = phrase_freq_from_masks(
+                [member(mi) for mi in g.ctx["memidx"][b]], K, PW
+            )  # (W, 128, 128)
+            live = freq > 0
+            if dead is not None:
+                live &= ~dead
+            sc = score_tile(scorer, freq.to(torch.float32), a["weights"][b])
+            scores[b] = torch.where(live, sc, NEG_INF)
+        rmax = scores.reshape(B, W, NSUB, SUB_DOCS).amax(dim=3)
+        return exact_window_topk(
+            scores, rmax[..., None].expand(B, W, NSUB, TILE), k
+        )
+
+    def _prep_phrase_lazy(self, key, members, k, ctx) -> Group:
+        """Lazy group (the reference's ``_prep_phrase_lazy``): cell tables,
+        weights, the C2 bucket covering the group's largest min-member df.
+        Without device caps (no positions stream, or a member freq above
+        the FCAP ladder) the group takes the host-verify route."""
+        seg = self.seg
+        slots = key[1]
+        T = _pad_T(members[0][1].n_slots)
+        cs, cn = self._cell_tables(members, T)
+        arrays = {"cs": cs, "cn": cn,
+                  "weights": self._member_weights(key, members, ctx)}
+        fcaps = self._phrase_fcaps(tuple(p for _, p in members), (slots,))
+        cfg = get_config()
+        if fcaps is None or k < 1:
+            return Group("lazyhost", key, members, T, len(members), arrays,
+                         dict(ctx, C2=cfg.phrase_lazy_candidates))
+        total_bound = 0
+        for _, plan in members:
+            dfs = []
+            for s in slots:
+                tid = seg.term_id(plan.term_texts[s])
+                dfs.append(int(seg.term_df[tid]) if tid >= 0 else 0)
+            total_bound = max(total_bound, min(dfs))
+        C2 = _pick_c2(total_bound, cfg.phrase_lazy_candidates, k)
+        # C2 >= every query's min-member df bounds its conjunction count:
+        # no overflow, and the threshold search is skipped (ops/select.py)
+        return Group("lazyph", key, members, T, len(members), arrays,
+                     dict(ctx, C2=C2, fcaps=fcaps[0],
+                          no_overflow=total_bound <= C2))
+
+    def _member_tiles(self, g: Group, a: dict):
+        """Decode a pure-phrase group: per member, (B, n) freqs and hit
+        offsets over the whole segment, and bound = min member freq."""
+        B, n = g.B, self.seg.n_windows * WINDOW_SIZE
+        freq, offv = self._decode_batch(g, a, with_offsets=True)
+        mf = [freq[:, :, s].reshape(B, n) for s in g.tape[1]]
+        mo = [offv[:, :, s].reshape(B, n) for s in g.tape[1]]
+        bound = mf[0]
+        for f in mf[1:]:
+            bound = torch.minimum(bound, f)  # 0 if any member is missing
+        return mf, mo, bound.to(torch.int32)
+
+    def _run_lazyph(self, g: Group, a: dict, k: int, scorer: str):
+        """Exact top-C2 candidates by (min member freq desc, docid asc),
+        verified on the device, scored, top-k, and a `resolved` flag: False
+        when the conjunction overflowed C2 and the k-th score does not beat
+        the best unpulled bound (the reference's
+        ``_build_phrase_lazy_fused``)."""
+        C2, fcaps = g.ctx["C2"], g.ctx["fcaps"]
+        mf, mo, bound = self._member_tiles(g, a)
+        ki, valid, tau, overflow = bound_select_candidates(
+            bound, C2, vmax=min(fcaps), assume_no_overflow=g.ctx["no_overflow"]
+        )
+        pf = torch.stack([gather_cols(f, ki) for f in mf], -1).to(torch.int32)
+        po = torch.stack([gather_cols(o, ki) for o in mo], -1)
+        pfreq = verify_phrases_device(self.hit_pw, self.hit_off, valid, pf,
+                                      po, fcaps)
+        live = (pfreq > 0) & valid
+        if self._deleted is not None:
+            live &= ~self._deleted[ki.long()]
+        w = a["weights"]
+        score = score_tile(scorer, pfreq.to(torch.float32), w[:, None])
+        # candidates lie in docid order: the stable top-k keeps docid-asc
+        kk = min(k, C2)
+        gv, gidx = topk_lowest_index(torch.where(live, score, NEG_INF), kk)
+        gi = torch.gather(ki.long(), 1, gidx)
+        if kk < k:  # C2 below k: resolves only without overflow
+            gv = torch.nn.functional.pad(gv, (0, k - kk), value=NEG_INF)
+            gi = torch.nn.functional.pad(gi, (0, k - kk))
+        thresh = score_tile(scorer, tau.to(torch.float32), w)
+        return gv, gi, ~overflow | (gv[:, k - 1] > thresh)
+
+    def _run_lazyhost(self, g: Group, a: dict, k: int, scorer: str):
+        """Lazy route without device caps (the reference's
+        ``_run_phrase_lazy_batch`` host loop): candidates ranked on the
+        device by bound, verified on the host with the numpy verifier in
+        bound order, stopping once the k-th score strictly beats the next
+        bound; an unresolved query reruns alone as a compound group."""
+        seg, B = self.seg, g.B
+        model = g.ctx["model"]
+        C2 = g.ctx["C2"]
+        mf, mo, bound = self._member_tiles(g, a)
+        kb, ki = topk_lowest_index(bound, min(C2, bound.shape[1]))
+        overflow = ((bound > 0).sum(dim=1) > C2).cpu().numpy()
+        gids, bounds = ki.cpu().numpy(), kb.cpu().numpy()
+        pf = torch.stack([gather_cols(f, ki) for f in mf], -1).to(
+            torch.int32).cpu().numpy()
+        po = torch.stack([gather_cols(o, ki) for o in mo], -1).cpu().numpy()
+        weights = g.arrays["weights"]
+        out_v = np.full((B, k), NEG_INF, np.float32)
+        out_i = np.zeros((B, k), np.int64)
+        for bi, (_, plan) in enumerate(g.members):
+            acc_v = np.zeros(0, np.float32)
+            acc_i = np.zeros(0, np.int64)
+            n_valid = int((bounds[bi] > 0).sum())
+            resolved = n_valid == 0
+            for c0 in range(0, n_valid, HOST_VERIFY_CHUNK):
+                hi = min(c0 + HOST_VERIFY_CHUNK, n_valid)
+                pfreq = verify_phrase_candidates(
+                    seg.positions, np.ones(hi - c0, bool), pf[bi, c0:hi],
+                    po[bi, c0:hi],
+                )
+                gid = gids[bi, c0:hi]
+                keep = pfreq > 0
+                if self._deleted_np is not None:
+                    keep &= ~self._deleted_np[gid]
+                sc = model.score_tile(
+                    pfreq[keep].astype(np.float32), np.float32(weights[bi])
+                ).astype(np.float32)
+                acc_v = np.concatenate([acc_v, sc])
+                acc_i = np.concatenate([acc_i, gid[keep]])
+                order = np.lexsort((acc_i, -acc_v))[: 2 * k]
+                acc_v, acc_i = acc_v[order], acc_i[order]
+                if hi == n_valid:
+                    # every pulled candidate verified: exact unless cut
+                    resolved = not (bool(overflow[bi]) or n_valid >= C2)
+                elif len(acc_v) >= k:
+                    nxt = float(model.score_tile(
+                        np.float32(bounds[bi, hi]), np.float32(weights[bi])
+                    ))
+                    if nxt < acc_v[k - 1]:
+                        resolved = True
+                        break
+            if not resolved:
+                acc_v, acc_i = self._dense_phrase_fallback(plan, g.ctx, k,
+                                                           scorer)
+            nkeep = min(len(acc_v), k)
+            out_v[bi, :nkeep] = acc_v[:nkeep]
+            out_i[bi, :nkeep] = acc_i[:nkeep]
+        return self._put(out_v), self._put(out_i)
+
+    def _finish_phrase_lazy(self, g: Group, gv, gi, resolved, k, scorer):
+        """Rerun each unresolved query of a lazyph group alone (rare)."""
+        gv, gi = gv.copy(), gi.copy()
+        for bi, (_, plan) in enumerate(g.members):
+            if not resolved[bi]:
+                fv, fi = self._dense_phrase_fallback(plan, g.ctx, k, scorer)
+                nkeep = min(len(fv), k)
+                gv[bi] = NEG_INF
+                gv[bi, :nkeep] = fv[:nkeep]
+                gi[bi, :nkeep] = fi[:nkeep]
+        return gv, gi
+
+    def _dense_phrase_fallback(self, plan, ctx, k, scorer):
+        """One pure-phrase query as a compound group of one (every
+        candidate verified): host (values, local ids)."""
+        g = self._prep_phrase_compound(plan.tape, [(0, plan)], ctx)
+        a = {n: self._put(v) for n, v in g.arrays.items()}
+        gv, gi = self._run_compound(g, a, k, scorer)
+        return gv[0].cpu().numpy(), gi[0].cpu().numpy()
+
+    def _prep_phrase_compound(self, key, members, ctx) -> Group:
+        """Compound group (the reference's ``_run_phrase_batch`` /
+        ``_run_phrase``): cell tables, all weights, and the per-window
+        candidate capacity C, an upper bound from block counts, so pass A
+        never overflows. Device caps per phrase member, or None for the
+        host verifier."""
+        model, docs_cnt, df_of = ctx["model"], ctx["docs_cnt"], ctx["df_of"]
+        plan0 = members[0][1]
+        T = _pad_T(plan0.n_slots)
+        phrase_slots = tuple(s for s, _ in collect_phrases(key))
+        cs, cn = self._cell_tables(members, T)
+        weights = np.array(
+            [[model.weight([df_of(t) for t in terms], docs_cnt)
+              for terms in plan.weight_terms] for _, plan in members],
+            np.float32,
+        ).reshape(len(members), len(plan0.weight_terms))
+        C = _phrase_c_bucket(max(
+            _phrase_c_bound(cn, phrase_slots, col=lambda s, b=bi: b * T + s)
+            for bi in range(len(members))
+        ))
+        fcaps = self._phrase_fcaps(tuple(p for _, p in members), phrase_slots)
+        return Group("phrase", key, members, T, len(members),
+                     {"cs": cs, "cn": cn, "weights": weights},
+                     dict(ctx, C=C, phrase_slots=phrase_slots, fcaps=fcaps))
+
+    def _run_compound(self, g: Group, a: dict, k: int, scorer: str):
+        """Pass A (the first C member-conjunction candidates per window, in
+        docid order), verification (device, or the numpy verifier), pass C
+        (the tape with the verified phrase-frequency tiles, a flat top-k)."""
+        B, T = g.B, g.T
+        freq, offv = self._decode_batch(g, a, with_offsets=True)
+        C, fcaps = g.ctx["C"], g.ctx["fcaps"]
+        ptiles = []
+        for p, slots in enumerate(g.ctx["phrase_slots"]):
+            m = freq[:, :, slots[0]] > 0
+            for s in slots[1:]:
+                m = m & (freq[:, :, s] > 0)
+            ki, valid = compact_mask(m.reshape(-1, WINDOW_SIZE), C)
+            ki = ki.reshape(*m.shape[:2], C)
+            valid = valid.reshape(ki.shape)
+            pf = torch.stack([gather_cols(freq[:, :, s], ki) for s in slots],
+                             -1).to(torch.int32)
+            po = torch.stack([gather_cols(offv[:, :, s], ki) for s in slots],
+                             -1)
+            if fcaps is not None:
+                pfreq = verify_phrases_device(self.hit_pw, self.hit_off,
+                                              valid, pf, po, fcaps[p])
+            else:
+                pfreq = self._put(verify_phrase_candidates(
+                    self.seg.positions, valid.reshape(-1).cpu().numpy(),
+                    pf.reshape(-1, len(slots)).cpu().numpy(),
+                    po.reshape(-1, len(slots)).cpu().numpy(),
+                ).reshape(ki.shape))
+            # invalid slots verify to 0: adding them changes nothing
+            tile = torch.zeros(freq[:, :, 0].shape, device=self.device)
+            ptiles.append(tile.scatter_add_(2, ki.long(),
+                                            pfreq.to(torch.float32)))
+        wts = a["weights"]
+        mask, score = eval_tape_tiles(
+            g.tape, {s: freq[:, :, s] for s in range(T)},
+            lambda i: wts[:, i].reshape(B, 1, 1), scorer, ptiles,
+        )
+        scores = torch.where(mask & self._live_docs(), score, NEG_INF)
+        return topk_lowest_index(scores.reshape(B, -1), k)
+
+    def _term_max_freq(self, text: str) -> int:
+        """Segment-wide max per-doc freq of a term (from block_max_freq)."""
+        mf = self._max_freq_cache.get(text)
+        if mf is None:
+            seg = self.seg
+            tid = seg.term_id(text)
+            mf = 1
+            if tid >= 0:
+                s, n = int(seg.term_block_start[tid]), int(seg.term_nblocks[tid])
+                if n:
+                    mf = max(1, int(seg.block_max_freq[s : s + n].max()))
+            self._max_freq_cache[text] = mf
+        return mf
+
+    def _phrase_fcaps(self, plans, phrase_slots):
+        """Per-phrase member position caps for the device verifier, or None
+        when a member's max freq exceeds the ladder or the segment has no
+        positions stream (the host verifier runs)."""
+        if len(self.seg.hit_group_off) < 2:
+            return None
+        caps = []
+        for slots in phrase_slots:
+            mem = []
+            for s in slots:
+                mf = max(self._term_max_freq(p.term_texts[s]) for p in plans)
+                b = fcap_bucket(mf)
+                if b is None:
+                    return None
+                mem.append(b)
+            caps.append(tuple(mem))
+        return tuple(caps)
+
+    # -------------------------------------------------------------- batch
     def launch_batch(self, queries: Sequence, k: int = 10,
                      scorer: str = "bm25"):
-        """Plan and launch a batch without waiting; returns a handle for
-        finish_batch."""
-        groups = self.plan_batch(queries, scorer)
+        """Plan and launch a batch; returns a handle for finish_batch.
+        Boolean and posmask groups return without waiting for the device."""
+        groups = self.plan_batch(queries, scorer, k)
         outs = [self.run_group(g, k, scorer) for g in groups]
-        gv = torch.cat([v for v, _ in outs]) if outs else None
-        gi = torch.cat([i for _, i in outs]) if outs else None
-        return groups, gv, gi, len(queries)
+        return groups, outs, len(queries), k, scorer
 
     def finish_batch(self, handle) -> List[List[SearchResult]]:
-        """Wait for a launch_batch handle and build the results."""
-        groups, gv, gi, n = handle
+        """Wait for a launch_batch handle and build the results (rerunning
+        the rare unresolved lazy-phrase queries)."""
+        groups, outs, n, k, scorer = handle
         results: List[List[SearchResult]] = [[] for _ in range(n)]
         if not groups:
             return results
-        vals = gv.cpu().numpy()
-        ids = gi.cpu().numpy()
+        vals = torch.cat([o[0] for o in outs]).cpu().numpy()
+        ids = torch.cat([o[1] for o in outs]).cpu().numpy()
+        flags = [o[2] for o in outs if o[2] is not None]
+        resolved = torch.cat(flags).cpu().numpy() if flags else None
         doc_map = self.seg.doc_map
-        row = 0
-        for g in groups:
+        row = frow = 0
+        for g, o in zip(groups, outs):
+            gv, gi = vals[row : row + g.B], ids[row : row + g.B]
+            row += g.B
+            if o[2] is not None:
+                gv, gi = self._finish_phrase_lazy(
+                    g, gv, gi, resolved[frow : frow + g.B], k, scorer
+                )
+                frow += g.B
             for bi, (qi, _) in enumerate(g.members):
                 res = []
-                for v, i in zip(vals[row + bi], ids[row + bi]):
+                for v, i in zip(gv[bi], gi[bi]):
                     if v == NEG_INF:
                         break
                     res.append(SearchResult(int(doc_map[i]), float(v)))
                 results[qi] = res
-            row += g.B
         return results

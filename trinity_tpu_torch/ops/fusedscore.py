@@ -134,23 +134,32 @@ def encode_tape(tape, used) -> np.ndarray:
 
 
 # ------------------------------------------------------ plain torch versions
-def eval_tape_tiles(tape, tiles, wsel, scorer_name):
+def eval_tape_tiles(tape, tiles, wsel, scorer_name, phrase_tiles=()):
     """Torch twin of the reference's ``eval_tape_tiles`` (and of
     ``executor._eval_tape``): identical op order. tiles: slot -> f32 freq
-    tensor; wsel: weight index -> f32 weight (broadcastable). Returns
-    (mask bool, score f32), shaped like the tiles."""
+    tensor; wsel: weight index -> f32 weight (broadcastable); phrase_tiles:
+    verified phrase-frequency f32 tensors, one per ``phrase`` node in
+    ``collect_phrases`` order. Returns (mask bool, score f32), shaped like
+    the tiles."""
+    # one iterator for the whole walk (iter of an iterator is itself), so
+    # the phrase nodes take their tiles in collect_phrases order
+    phrase_tiles = iter(phrase_tiles)
+    rec = lambda t: eval_tape_tiles(t, tiles, wsel, scorer_name, phrase_tiles)
     kind = tape[0]
-    if kind == "tok":
-        _, slot, widx = tape
-        f = tiles[slot]
+    if kind in ("tok", "phrase"):
+        if kind == "tok":
+            _, slot, widx = tape
+            f = tiles[slot]
+        else:
+            widx = tape[2]
+            f = next(phrase_tiles)
         mask = f > 0
         return mask, torch.where(
             mask, score_tile(scorer_name, f, wsel(widx)), 0.0
         )
     if kind in ("and", "or", "not"):
-        _, lt, rt = tape
-        lm, ls = eval_tape_tiles(lt, tiles, wsel, scorer_name)
-        rm, rs = eval_tape_tiles(rt, tiles, wsel, scorer_name)
+        lm, ls = rec(tape[1])
+        rm, rs = rec(tape[2])
         if kind == "and":
             m = lm & rm
             return m, torch.where(m, ls + rs, 0.0)
@@ -160,16 +169,16 @@ def eval_tape_tiles(tape, tiles, wsel, scorer_name):
         m = lm & ~rm
         return m, torch.where(m, ls, 0.0)
     if kind == "unot":
-        cm, cs = eval_tape_tiles(tape[1], tiles, wsel, scorer_name)
+        cm, cs = rec(tape[1])
         return ~cm, torch.zeros_like(cs)
     if kind == "opt":
-        cm, cs = eval_tape_tiles(tape[1], tiles, wsel, scorer_name)
+        cm, cs = rec(tape[1])
         return torch.ones_like(cm), torch.where(cm, cs, 0.0)
     if kind == "some":
         _, kmin, children = tape
         cnt = tot = None
         for c in children:
-            cm, cs = eval_tape_tiles(c, tiles, wsel, scorer_name)
+            cm, cs = rec(c)
             ci = cm.to(torch.int32)
             cnt = ci if cnt is None else cnt + ci
             tot = cs if tot is None else tot + cs

@@ -1,10 +1,11 @@
 """Build, load and launch the port's CUDA kernels; count their launches.
 
 The kernels are plain-C entry points in ``trinity_tpu_torch/csrc/*.cu``,
-compiled at first use by ``nvcc`` for ``sm_90a`` into one shared library
-under ``trinity_tpu_torch/_build/`` (named by a digest of the sources and
-flags, so an edited source never loads a stale build) and bound with
-ctypes. Nothing here runs at import: the CPU tests import every module.
+compiled at first use by ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source,
+all started together, then one link) into one shared library under
+``trinity_tpu_torch/_build/`` (named by a digest of the sources and flags,
+so an edited source never loads a stale build) and bound with ctypes.
+Nothing here runs at import: the CPU tests import every module.
 
 Flags: ``-O3`` with ``-fmad=false`` and without ``--use_fast_math`` — IEEE
 division and sqrt stay on (nvcc's defaults) and no multiply-add is
@@ -26,11 +27,11 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("postings.cu", "fusedscore.cu")
+SOURCES = ("postings.cu", "fusedscore.cu", "posmask.cu")
 HEADERS = ("decode.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # C entry points: argument kinds, p = pointer (tensor or None), i = int;
@@ -39,9 +40,10 @@ _SIGNATURES = {
     "trin_decode_tiles": "pppppiipp",
     "trin_flat_score": "ppppppppp" "iip" "iiii" "pp",
     "trin_tape_score": "pppppip" "pipi" "p" "iip" "iiii" "pp",
+    "trin_posmask_tiles": "pppppp" "iii" "p",
 }
 
-launches = {"decode": 0, "flat": 0, "tape": 0}
+launches = {"decode": 0, "flat": 0, "tape": 0, "posmask": 0}
 build_info: dict = {}
 _lib = None
 
@@ -76,12 +78,25 @@ def build() -> str:
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in SOURCES)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        log = r.stdout + r.stderr
+        objs = [f"{tmp}.{s}.o" for s in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, o in zip(SOURCES, objs)
+        ]
+        outs = [(p.communicate()[0], p.returncode) for p in procs]
+        log = "".join(o for o, _ in outs)
+        if any(rc for _, rc in outs):
+            raise RuntimeError(f"nvcc failed:\n{log[-4000:]}")
+        r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        log += r.stdout + r.stderr
+        for o in objs:
+            os.remove(o)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log[-4000:]}")
+            raise RuntimeError(f"nvcc link failed:\n{log[-4000:]}")
         os.replace(tmp, path)
     build_info.update(seconds=time.perf_counter() - t0, path=path, log=log)
     return path
