@@ -2,31 +2,39 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile   # where the time goes, instead
+    python3 chip_smoke.py --turns PARENT_TREE   # kernel times, two trees
 
 Runs from the repo root and needs one CUDA card; it exits non-zero, with no
 result line, when torch sees no card or the repo is not beside it. It
-imports nothing of JAX and nothing of the JAX package: the host code
-(index, config) comes through trinity_tpu_torch, the corpus and queries
-through bench.py.
+imports nothing of JAX and nothing of the JAX package (trinity_tpu): the
+port stands alone, the corpus traffic and the baseline come from bench.py,
+and the run fails if any trinity_tpu module was loaded.
 
 Phases (each prints its own lines; any failure raises, so the exit code is
 non-zero):
 
 1. device: the card's name, compute capability and nvidia-smi power limit;
 2. build: the CUDA kernels, compiled from trinity_tpu_torch/csrc with nvcc
-   into trinity_tpu_torch/_build (git-ignored), and the native host
-   library, compiled from native/trinity_host.cpp into the same directory;
+   into trinity_tpu_torch/_build (git-ignored), with each kernel's
+   registers, stack frame and spills from ptxas (the tape kernel must have
+   neither stack nor spills), and the native host library, compiled from
+   native/trinity_host.cpp into the same directory;
 3. corpus and traffic: the bench deployment — bench.py's 1,048,576-doc,
-   524,288-term corpus (built by bench's own builder, cached under the
-   build directory), its 120-query generator with seed SEED+1 (102
-   boolean queries, 12 bigram and 6 trigram phrases), and the baseline
-   engine (baseline/engine.cpp) on the same corpus;
+   524,288-term corpus (bench's tokens and docs.bin, indexed by the port's
+   own builder, cached under the build directory), its 120-query
+   generator with seed SEED+1 (102 boolean queries, 12 bigram and 6
+   trigram phrases), and the baseline engine (baseline/engine.cpp) on the
+   same corpus;
 4. each kernel against its plain torch version on the card, at the shapes
    the main path gives it (freq/offset tiles and position words
-   bit-equal, scores and sub-block maxima within 2 ulp), with median
-   times from CUDA events: K1 and K4 on the first 8-term chunk of their
-   hot caches over all windows, K4 also on the bigram group's uncached
-   cells, K2 and K3 on the largest flat group and the OR-of-AND group;
+   bit-equal, scores and sub-block maxima within 2 ulp), with device
+   times from CUDA events around 20 calls launched back to back (median of
+   5 rounds) and the bound (the bytes the call must move at the card's
+   memory rate, or its f32 operations at the peak rate, the larger): K1
+   on the first 8-term chunk of the hot-term planes (both output modes),
+   K2 on each flat group (T = 2, 4, 8), K3 on the OR-of-AND group, K4 on
+   the first 8-term chunk of the posmask hot cache and on the bigram and
+   trigram groups' uncached cells, all over every window;
 5. the main path: Executor(seg, "cuda"), warmup, pipelined launch_batch /
    finish_batch QPS over the 120 queries and over each part (median of 3
    loops of 5 reps), blocking search() p50/p99 for each part (median of 3
@@ -39,8 +47,9 @@ non-zero):
    the port's CPU executor on the same segment (the baseline engine has
    no compound-phrase syntax).
 
-The last lines: one JSON object {"kernels": [...]}, the nvidia-smi line
-(name, power limit), and {"ok": true, "device": {...}}.
+The last lines: the check that no trinity_tpu module was loaded, one JSON
+object {"kernels": [...]}, the nvidia-smi line (name, power limit), and
+{"ok": true, "device": {...}}.
 
 With --profile it runs phases 1-3 and then, in place of 4-7, the
 measurement behind PERF.md's "Where the time goes": the host split of a
@@ -48,10 +57,18 @@ blocking batch, the device busy share of pipelined batches and their top
 kernels (torch.profiler), and each group's device time by function (CUDA
 events), on the posmask and the lazy phrase paths. It prints no result
 line.
+
+With --turns PARENT_TREE (an unpacked older tree of this repo, e.g. from
+git archive, with the same corpus builder output) it runs phases 1-2, the
+corpus, and then times phase 4's kernel calls with the parent tree's port
+and with this one, each in its own process, in turns (parent, this, this,
+parent) on the same card, and prints each case's medians. It prints no
+result line.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -59,7 +76,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(REPO, "trinity_tpu_torch", "_build")
 RTOL = 2.4e-7  # 2 ulp: the repo's engine-vs-oracle score bound
-REPS = 20  # timed launches per kernel (median)
+REPS = 20  # calls a timing round launches back to back
 
 
 def log(msg):
@@ -87,6 +104,28 @@ def phase_device():
     log(f"[device] nvidia-smi: {nvidia_smi()}")
 
 
+def ptxas_report(log):
+    """{kernel: [registers, stack frame, spill stores, spill loads]} from
+    nvcc's -Xptxas -v output (template arguments shown as <4,8>)."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )_Z\w*?([a-z_]+_kernel)(I(?:Li\d+E)+E)?", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            fn = m.group(1) + (f"<{','.join(args)}>" if args else "")
+            out.setdefault(fn, [0, 0, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn][1:] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn][0] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from trinity_tpu_torch.utils import kernels
 
@@ -94,9 +133,14 @@ def phase_build():
     info = kernels.build_info
     log(f"[build] kernels {info['seconds']:.2f}s -> "
         f"{os.path.relpath(info['path'], REPO)}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    report = ptxas_report(info["log"])
+    for fn, (regs, stack, st, ld) in sorted(report.items()):
+        log(f"[build]   {fn}: {regs} registers, {stack} bytes stack frame, "
+            f"{st}/{ld} bytes spill stores/loads")
+    tape = {fn: v for fn, v in report.items() if fn.startswith("tape_score")}
+    if info["log"] and (not tape or any(any(v[1:]) for v in tape.values())):
+        raise RuntimeError(
+            f"tape_score_kernel keeps a stack or spills: {tape}")
     # native host library (index build): compiled here for this host's
     # CPU rather than loading the committed binary
     lib = os.path.join(BUILD, "libtrinity_host.so")
@@ -110,7 +154,51 @@ def phase_build():
     log(f"[build] native host lib {time.perf_counter() - t0:.2f}s")
 
 
-def phase_corpus():
+def build_corpus():
+    """The bench deployment's corpus, built by the port: the tokens of
+    bench.py's corpus builder (bench's constants, default_rng(bench.SEED)),
+    the same docs.bin (read by baseline/engine.cpp and bench.make_queries),
+    and the segment from the port's SegmentIndexSession.bulk_index_ids,
+    persisted under bench._cache_dir()."""
+    import numpy as np
+
+    import bench
+    from trinity_tpu_torch import SegmentIndexSession
+
+    rng = np.random.default_rng(bench.SEED)
+    zipf = 1.0 / np.arange(1, bench.VOCAB + 1) ** bench.ZIPF_S
+    zipf /= zipf.sum()
+    lengths = rng.integers(bench.DOC_LEN[0], bench.DOC_LEN[1],
+                           size=bench.N_DOCS)
+    bounds = np.zeros(bench.N_DOCS + 1, np.int64)
+    np.cumsum(lengths, out=bounds[1:])
+    tokens = rng.choice(bench.VOCAB, size=int(bounds[-1]), p=zipf).astype(
+        np.uint32)
+    os.makedirs(bench._cache_dir(), exist_ok=True)
+    tmp = bench._docs_bin() + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(b"TBC1")
+        np.array([bench.N_DOCS, bench.VOCAB], np.uint32).tofile(f)
+        bounds.tofile(f)
+        tokens.tofile(f)
+    os.replace(tmp, bench._docs_bin())
+    sess = SegmentIndexSession()
+    sess.bulk_index_ids(np.arange(bench.N_DOCS), tokens.astype(np.int64),
+                        bounds, [f"w{i}" for i in range(bench.VOCAB)])
+    seg = sess.commit()
+    seg.persist(os.path.join(bench._cache_dir(), "seg"))
+    return seg
+
+
+def reference_modules():
+    """Loaded modules of the JAX package: trinity_tpu, trinity_tpu.*."""
+    return sorted(m for m in sys.modules
+                  if m == "trinity_tpu" or m.startswith("trinity_tpu."))
+
+
+def load_corpus():
+    """The bench corpus (built by the port on first use, under the build
+    directory) and its 120 queries: (seg, queries, id_lines)."""
     import numpy as np
 
     import bench
@@ -120,17 +208,28 @@ def phase_corpus():
     t0 = time.perf_counter()
     seg_dir = os.path.join(bench._cache_dir(), "seg")
     if not os.path.exists(os.path.join(seg_dir, "id")):
-        # bench's own corpus builder, in a subprocess (its memory and CPU
-        # churn stay out of this process), writing under the build dir
-        code = (f"import bench; bench.CACHE_ROOT = {bench.CACHE_ROOT!r}; "
-                "bench._build_corpus_fresh()")
+        # the port's builder, in a subprocess (its memory and CPU churn
+        # stay out of this process), writing under the build dir
+        code = ("import bench, chip_smoke; "
+                f"bench.CACHE_ROOT = {bench.CACHE_ROOT!r}; "
+                "chip_smoke.build_corpus(); "
+                "assert not chip_smoke.reference_modules(), "
+                "chip_smoke.reference_modules()")
         subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
     seg = SegmentData.load(seg_dir)
     log(f"[corpus] {seg.n_docs} docs, {seg.n_terms} terms, "
-        f"{seg.n_windows} windows, ready in {time.perf_counter() - t0:.1f}s")
+        f"{seg.n_windows} windows, built by trinity_tpu_torch, ready in "
+        f"{time.perf_counter() - t0:.1f}s")
     queries, id_lines = bench.make_queries(
         seg, np.random.default_rng(bench.SEED + 1)
     )
+    return seg, queries, id_lines
+
+
+def phase_corpus():
+    import bench
+
+    seg, queries, id_lines = load_corpus()
     t0 = time.perf_counter()
     base = bench.measure_baseline(id_lines)
     if base is None:
@@ -143,22 +242,27 @@ def phase_corpus():
     return seg, queries, base_topk, phrase
 
 
-def cuda_ms(fn):
-    """Median ms of REPS launches, timed with CUDA events after a warm
-    call."""
+def cuda_ms(fn, rounds=5):
+    """Device ms of one call of `fn`: after a warm call, `rounds` rounds of
+    REPS calls launched back to back between two CUDA events; the median
+    round over REPS. Back to back, the card runs one call after the other
+    while the host enqueues the next, so the host's own time per call
+    (the wrapper's checks and the launch) is hidden wherever it is below
+    the call's device time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(rounds):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(REPS):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / REPS)
     return sorted(times)[len(times) // 2]
 
 
@@ -188,107 +292,208 @@ def compare(got, want, exact):
     return err, ulp
 
 
-def phase_kernels(seg, queries):
+def kernel_cases(ex, queries):
+    """The main path's shapes for each kernel, as (kernel, what, call,
+    plain call, byte-count call, detail call) for the executor `ex`: K1 on
+    the first 8-term chunk of the hot-term planes; K2 on each flat group,
+    the largest first; K3 on the OR-of-AND group; K4 on the first 8-term
+    chunk of the posmask hot cache and on the bigram and trigram groups'
+    uncached cells (all windows). The calls take no argument; call and
+    `what` use only what the port had before this file's turns mode (so it
+    can time an older tree too)."""
     import torch
 
-    from trinity_tpu_torch import Executor
     from trinity_tpu_torch.ops import fusedscore as fs
     from trinity_tpu_torch.ops import posmask as pm
     from trinity_tpu_torch.ops import postings as po
 
-    ex = Executor(seg, device="cuda")
-    dev = ex.device
-    put = lambda a: torch.from_numpy(a).to(dev)
-    rows = {}
-
-    # K1: the first 8-term hot-plane chunk, all windows, both output modes
+    seg = ex.seg
+    put = lambda a: torch.from_numpy(a).to(ex.device)
+    cases = []
     tids = sorted(ex._hot, key=ex._hot.get)[:8]
     cs, cn = map(put, po.compute_cells(seg, tids))
-    args = (ex.bmeta, ex.planes, cs, cn)
-    err = 0.0
     for off in (False, True):
-        got = po.materialize_freq_tiles(*args, with_offsets=off)
-        want = po.materialize_freq_tiles_ref(*args, with_offsets=off)
-        torch.cuda.synchronize()
-        compare(got if off else (got,), want if off else (want,), exact=True)
-    ms = cuda_ms(lambda: po.materialize_freq_tiles(*args))
-    plain = cuda_ms(lambda: po.materialize_freq_tiles_ref(*args))
-    ms_off = cuda_ms(lambda: po.materialize_freq_tiles(*args,
-                                                       with_offsets=True))
-    log(f"[kernels] K1 decode (W={seg.n_windows}, T=8, {int(cn.sum())} "
-        f"blocks): bit-exact in both modes; {ms:.4f} ms "
-        f"({ms_off:.4f} ms with offsets) vs plain {plain:.4f} ms")
-    rows["decode"] = dict(
-        name="materialize_freq_tiles",
-        source="trinity_tpu_torch/csrc/postings.cu",
-        replaces="trinity_tpu/ops/postings.py:530",
-        max_abs_err=err, ms=ms, plain_ms=plain)
-
+        a = (ex.bmeta, ex.planes, cs, cn)
+        cases.append((
+            "decode", f"T=8, {int(cn.sum())} blocks, offsets {off}",
+            lambda a=a, o=off: po.materialize_freq_tiles(*a, with_offsets=o),
+            lambda a=a, o=off: po.materialize_freq_tiles_ref(
+                *a, with_offsets=o),
+            lambda a=a, o=off: po.decode_bytes(a[0], a[2], a[3], o),
+            lambda: ""))
     groups = ex.plan_batch(queries)
-    flat = max((g for g in groups if g.kind == "flat"),
-               key=lambda g: g.B * g.T)
+    flats = sorted((g for g in groups if g.kind == "flat"),
+                   key=lambda g: -g.B * g.T)
     fused = next(g for g in groups if g.kind == "fused")
-    for g, key in ((flat, "flat"), (fused, "tape")):
+    for g, key in [(g, "flat") for g in flats] + [(fused, "tape")]:
         a = {n: put(v) for n, v in g.arrays.items()}
         head = (ex.bmeta, ex.planes, a["cs"], a["cn"], a["weights"])
+        what = (f"B={g.B} with {len(g.members)} queries, T={g.T}, "
+                f"{int((g.arrays['cids'] >= 0).sum())} cached slots")
         if key == "flat":
             tail = (a["flags"], a["kmin"], a["cids"], ex.tf_planes,
                     seg.n_docs, None)
-            kern = lambda: fs.fused_flat_score_tiles(
-                *head, *tail, scorer_name="bm25")
-            ref = lambda: fs.fused_flat_score_tiles_ref(
-                *head, *tail, scorer_name="bm25")
-            name, line = "fused_flat_score_tiles", 421
+            call = lambda h=head, t=tail: fs.fused_flat_score_tiles(
+                *h, *t, scorer_name="bm25")
+            ref = lambda h=head, t=tail: fs.fused_flat_score_tiles_ref(
+                *h, *t, scorer_name="bm25")
+            nw = 2 * g.T + 1
         else:
             tail = (a["cids"], ex.tf_planes, seg.n_docs, None)
-            kern = lambda: fs.fused_score_tiles(
-                *head, *tail, tape=g.tape, scorer_name="bm25")
-            ref = lambda: fs.fused_score_tiles_ref(
-                *head, *tail, tape=g.tape, scorer_name="bm25")
-            name, line = "fused_score_tiles", 378
-        got, want = kern(), ref()
-        torch.cuda.synchronize()
-        err, ulp = compare(got, want, exact=False)
-        ms, plain = cuda_ms(kern), cuda_ms(ref)
-        ncached = int((g.arrays["cids"] >= 0).sum())
-        log(f"[kernels] {'K2' if key == 'flat' else 'K3'} {name} "
-            f"(B={g.B} with {len(g.members)} queries, T={g.T}, "
-            f"{ncached} cached slots): max {ulp:.1f} ulp, max abs err "
-            f"{err:.3g}; {ms:.4f} ms vs plain {plain:.4f} ms")
-        rows[key] = dict(
-            name=name, source="trinity_tpu_torch/csrc/fusedscore.cu",
-            replaces=f"trinity_tpu/ops/fusedscore.py:{line}",
-            max_abs_err=err, ms=ms, plain_ms=plain)
-
-    # K4: the first 8-term chunk of the posmask hot cache over all
-    # windows, then the bench bigram group's uncached cells
+            call = lambda h=head, t=tail, tp=g.tape: fs.fused_score_tiles(
+                *h, *t, tape=tp, scorer_name="bm25")
+            ref = lambda h=head, t=tail, tp=g.tape: fs.fused_score_tiles_ref(
+                *h, *t, tape=tp, scorer_name="bm25")
+            nw = g.arrays["weights"].shape[1]
+        nb = lambda a=a, B=g.B, nw=nw: fs.score_bytes(
+            ex.bmeta, ex.planes, a["cs"], a["cn"], a["cids"], B, None, nw)
+        cases.append((key, what, call, ref, nb,
+                      lambda tp=g.tape: program_size(tp)))
     PW = ex._pw_words
     tids = sorted(ex._pos_hot, key=ex._pos_hot.get)[:8]
-    bigram = next(g for g in groups if g.kind == "posph" and g.T == 2)
-    k4 = {}
-    for what, (cs, cn) in (
-            ("hot chunk", po.compute_cells(seg, tids)),
-            ("bigram group", (bigram.arrays["cs"], bigram.arrays["cn"]))):
-        args = (ex.bmeta, ex.planes, ex.hit_pw, ex.hit_off, put(cs),
-                put(cn), PW)
-        got = pm.materialize_posmask_tiles(*args)
-        want = pm.materialize_posmask_tiles_ref(*args)
+    sources = [("hot chunk", po.compute_cells(seg, tids))]
+    for T, name in ((2, "bigram group"), (3, "trigram group")):
+        g = next(g for g in groups if g.kind == "posph" and g.T == T)
+        sources.append((name, (g.arrays["cs"], g.arrays["cn"])))
+    for what, (cs, cn) in sources:
+        args = (ex.bmeta, ex.planes, ex.hit_pw, ex.hit_off, put(cs), put(cn),
+                PW)
+        cases.append((
+            "posmask", f"{what}: M={cs.shape[1]}, PW={PW}, "
+            f"{int(cn.sum())} blocks",
+            lambda a=args: pm.materialize_posmask_tiles(*a),
+            lambda a=args: pm.materialize_posmask_tiles_ref(*a),
+            lambda a=args: pm.posmask_bytes(a[0], a[1], a[3], a[4], a[5],
+                                            a[6]),
+            lambda a=args: f"{position_elements(*a[:2], *a[4:6])} position "
+                           f"elements"))
+    return cases
+
+
+def program_size(tape):
+    """The tape kernel's register program for `tape` (None: a flat group,
+    which has none), as text."""
+    from trinity_tpu_torch.ops import fusedscore as fs
+
+    if tape is None:
+        return ""
+    prog, nreg = fs.encode_tape(tape, fs.tape_used_slots(tape))
+    return f"program of {len(prog)} ops in {nreg} registers"
+
+
+def position_elements(bmeta, planes, cs, cn):
+    """Position elements of the cells' in-window postings (the positions a
+    posmask call ORs in): the sum of their freqs."""
+    from trinity_tpu_torch.limits import WINDOW_SIZE
+    from trinity_tpu_torch.ops.postings import decode_cells
+
+    cell, docs, freq, _, valid = decode_cells(bmeta, planes, cs, cn)
+    local = docs - (cell // cs.shape[1])[:, None] * WINDOW_SIZE
+    return int(freq[valid & (local >= 0) & (local < WINDOW_SIZE)].sum())
+
+
+KERNEL_ROWS = {  # counter: (name, source, the TPU kernel it replaces)
+    "decode": ("materialize_freq_tiles", "trinity_tpu_torch/csrc/postings.cu",
+               "trinity_tpu/ops/postings.py:530"),
+    "flat": ("fused_flat_score_tiles", "trinity_tpu_torch/csrc/fusedscore.cu",
+             "trinity_tpu/ops/fusedscore.py:421"),
+    "tape": ("fused_score_tiles", "trinity_tpu_torch/csrc/fusedscore.cu",
+             "trinity_tpu/ops/fusedscore.py:378"),
+    "posmask": ("materialize_posmask_tiles",
+                "trinity_tpu_torch/csrc/posmask.cu",
+                "trinity_tpu/ops/posmask.py:303"),
+}
+
+
+def phase_kernels(seg, queries):
+    """Each kernel against its plain version at the main path's shapes:
+    integer tiles bit-equal, scores within 2 ulp; median times, and the
+    bound from the bytes (and f32 operations) the call must move."""
+    import torch
+
+    from trinity_tpu_torch import Executor
+    from trinity_tpu_torch.utils import kernels
+
+    ex = Executor(seg, device="cuda")
+    rows = {}
+    for key, what, call, ref, nbytes, detail in kernel_cases(ex, queries):
+        got, want = call(), ref()
         torch.cuda.synchronize()
-        compare((got,), (want,), exact=True)
-        k4[what] = (cuda_ms(lambda: pm.materialize_posmask_tiles(*args)),
-                    cuda_ms(lambda: pm.materialize_posmask_tiles_ref(*args)))
-        log(f"[kernels] K4 posmask {what} (W={seg.n_windows}, "
-            f"M={cs.shape[1]}, PW={PW}, {int(cn.sum())} blocks, "
-            f"{int((want != 0).sum())} nonzero words): bit-exact; "
-            f"{k4[what][0]:.4f} ms vs plain {k4[what][1]:.4f} ms")
-    rows["posmask"] = dict(
-        name="materialize_posmask_tiles",
-        source="trinity_tpu_torch/csrc/posmask.cu",
-        replaces="trinity_tpu/ops/posmask.py:303",
-        max_abs_err=0.0, ms=k4["hot chunk"][0], plain_ms=k4["hot chunk"][1])
-    del ex, groups
+        pair = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        exact = key in ("decode", "posmask")
+        err, ulp = compare(*pair, exact=exact)
+        ms, plain = cuda_ms(call), cuda_ms(ref)
+        counted = nbytes()
+        nb, ops = counted if isinstance(counted, tuple) else (counted, 0)
+        bound, by = kernels.bound_ms(nb, ops)
+        what = ", ".join(x for x in (what, detail()) if x)
+        match = ("bit-exact" if exact
+                 else f"max {ulp:.1f} ulp, abs err {err:.3g}")
+        log(f"[kernels] {key} {KERNEL_ROWS[key][0]} ({what}): {match}"
+            f"; {ms:.4f} ms vs plain {plain:.4f} ms; bound {bound:.4f} ms "
+            f"({nb} bytes, {ops} f32 ops: {by}), share {bound / ms:.3f}")
+        # the first shape of each kernel is its row in the kernels line
+        rows.setdefault(key, dict(
+            name=KERNEL_ROWS[key][0], source=KERNEL_ROWS[key][1],
+            replaces=KERNEL_ROWS[key][2], max_abs_err=err, ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by,
+            # no single PyTorch call computes any of these functions
+            library_ms=None))
+    del ex
     torch.cuda.empty_cache()
     return rows
+
+
+def kernel_times(root, cache_root, reps):
+    """One turn of --turns, run in a fresh process: import the port from
+    the tree at `root`, load the bench corpus cached under `cache_root`
+    (bench.CACHE_ROOT), and time each kernel case `reps` times (cuda_ms)
+    with that tree's kernels. Prints one JSON line {case: [ms, ...]}."""
+    import numpy as np
+
+    sys.path.insert(0, root)
+    import bench
+    from trinity_tpu_torch import Executor, SegmentData
+
+    bench.CACHE_ROOT = cache_root
+    seg = SegmentData.load(os.path.join(bench._cache_dir(), "seg"))
+    queries, _ = bench.make_queries(seg, np.random.default_rng(bench.SEED + 1))
+    ex = Executor(seg, "cuda")
+    out = {}
+    for key, what, call, *_ in kernel_cases(ex, queries):
+        out[f"{key} {what}"] = [cuda_ms(call) for _ in range(reps)]
+    print(json.dumps(out), flush=True)
+
+
+def phase_turns(parent):
+    """Kernel times of the tree at `parent` against this tree's, in one
+    process each, in turns (parent, this, this, parent) on this card."""
+    import numpy as np
+
+    import bench
+
+    load_corpus()
+    runs = {}
+    for tag, root in (("parent", parent), ("this", REPO), ("this", REPO),
+                      ("parent", parent)):
+        code = ("import importlib.util as u, sys; "
+                f"s = u.spec_from_file_location('smoke', {__file__!r}); "
+                "m = u.module_from_spec(s); s.loader.exec_module(m); "
+                f"m.kernel_times({os.path.abspath(root)!r}, "
+                f"{bench.CACHE_ROOT!r}, 3)")
+        r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"turn of {root} failed:\n{r.stderr[-3000:]}")
+        times = json.loads(r.stdout.strip().splitlines()[-1])
+        log(f"[turns] {tag} ({root}): " + json.dumps(times))
+        for case, ts in times.items():
+            runs.setdefault(case, {}).setdefault(tag, []).extend(ts)
+    for case, by in runs.items():
+        med = {tag: float(np.median(ts)) for tag, ts in by.items()}
+        log(f"[turns] {case}: parent {med['parent']:.4f} ms, this "
+            f"{med['this']:.4f} ms ({med['parent'] / med['this']:.2f}x); "
+            f"medians of {len(by['this'])} medians each")
 
 
 def qps(ex, queries, reps=5):
@@ -584,14 +789,21 @@ def phase_profile(seg, queries, phrase):
 
 
 def main():
-    if sys.argv[1:] not in ([], ["--profile"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--profile]")
+    args = sys.argv[1:]
+    if not (args in ([], ["--profile"])
+            or (len(args) == 2 and args[0] == "--turns")):
+        raise SystemExit(
+            "usage: python3 chip_smoke.py [--profile | --turns PARENT_TREE]")
     phase_device()
     import torch
 
     phase_build()
+    if args[:1] == ["--turns"]:
+        phase_turns(args[1])
+        log(nvidia_smi())
+        return
     seg, queries, base_topk, phrase = phase_corpus()
-    if sys.argv[1:] == ["--profile"]:
+    if args == ["--profile"]:
         phase_profile(seg, queries, phrase)
         log(nvidia_smi())
         return
@@ -599,6 +811,10 @@ def main():
     launches = phase_slice(seg, queries, base_topk, phrase)
     phase_lazy(seg, queries, base_topk, phrase)
     phase_compound(seg, queries, phrase)
+    loaded = reference_modules()
+    log(f"[imports] modules of the JAX package loaded in this run: {loaded}")
+    if loaded:
+        raise RuntimeError(f"the port loaded the JAX package: {loaded}")
     out = [dict(rows[k], route="cuda", launches=launches[k])
            for k in ("decode", "flat", "tape", "posmask")]
     log(json.dumps({"kernels": out}))

@@ -6,7 +6,8 @@ the fixture, not at import). On a machine with a card, run them with
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 (``--noconftest``: tests/conftest.py imports jax, which the port's GPU
-machine need not have; this file imports no jax.)
+machine need not have; this file imports only the port, which it steers
+with the port's own ``configure``.)
 
 Tolerances: freq, offset and position-word tiles, and top-k ids, must be
 bit-equal;
@@ -19,14 +20,19 @@ import numpy as np
 import pytest
 import torch
 
-from trinity_tpu.config import configure, get_config
-from trinity_tpu.index.builder import SegmentIndexSession
-from trinity_tpu_torch import Executor
+from trinity_tpu_torch import (
+    Executor,
+    SegmentIndexSession,
+    configure,
+    get_config,
+)
 from trinity_tpu_torch.ops.fusedscore import (
+    encode_tape,
     fused_flat_score_tiles,
     fused_flat_score_tiles_ref,
     fused_score_tiles,
     fused_score_tiles_ref,
+    tape_used_slots,
 )
 from trinity_tpu_torch.ops.posmask import (
     materialize_posmask_tiles,
@@ -198,10 +204,11 @@ def make_phrase_segment(seed=13, n_docs=40_000, vocab=60):
     return sess.commit()
 
 
-@pytest.mark.parametrize("pw_words", [4, 11])
+@pytest.mark.parametrize("pw_words", [1, 3, 4, 11])
 def test_posmask_kernel_bit_exact(dev, seg, pw_words):
     """K4 against its plain version: heavy-freq runs, a sparse term, an
-    unknown term, a zeroed cell; 11 words take two register passes."""
+    unknown term, a zeroed cell; PW = 1 (8192-doc ranges), 3 (the bench's,
+    2048-doc ranges) and 11 (512-doc ranges)."""
     df = np.asarray(seg.term_df)
     tids = [int(t) for t in np.argsort(-df)[:4]] + [
         seg.term_id("t400"), seg.term_id("t401"), -1, int(np.argsort(-df)[9])]
@@ -253,3 +260,109 @@ def test_phrase_executor_cuda_equals_cpu(dev, path):
         np.testing.assert_allclose([r.score for r in g],
                                    [r.score for r in w], rtol=RTOL, atol=0)
     assert sum(1 for w in out[1] if w) >= len(PHRASE_QUERIES) - 2
+
+
+def test_posmask_kernel_writes_a_cache_view(dev):
+    """K4 into a strided destination (members 2..4 of a 6-member cache)
+    equals the plain version and leaves the rest of the cache untouched;
+    the executor's posmask hot cache, built in place chunk by chunk,
+    equals the plain version over every cached term."""
+    from trinity_tpu_torch.ops.postings import compute_cells
+
+    pseg = make_phrase_segment()
+    cfg = get_config()
+    saved = cfg.posmask_min_df
+    configure(posmask_min_df=1)
+    try:
+        ex = Executor(pseg, dev)
+        order = sorted(ex._pos_hot, key=ex._pos_hot.get)
+        assert len(order) > 8  # more than one chunk
+        cache = ex.pos_planes
+    finally:
+        configure(posmask_min_df=saved)
+    PW = ex._pw_words
+    put = lambda a: torch.from_numpy(a).to(dev)
+    cs, cn = map(put, compute_cells(pseg, order))
+    args = (ex.bmeta, ex.planes, ex.hit_pw, ex.hit_off, cs, cn, PW)
+    assert torch.equal(cache, materialize_posmask_tiles_ref(*args))
+    big = torch.full((pseg.n_windows, 6, PW, 128, 128), 7, dtype=torch.int32,
+                     device=dev)
+    sub = (ex.bmeta, ex.planes, ex.hit_pw, ex.hit_off, cs[:, :3].contiguous(),
+           cn[:, :3].contiguous(), PW)
+    got = materialize_posmask_tiles(*sub, out=big[:, 2:5])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == big[:, 2:5].data_ptr()
+    assert torch.equal(big[:, 2:5], materialize_posmask_tiles_ref(*sub))
+    assert (big[:, :2] == 7).all() and (big[:, 5:] == 7).all()
+
+
+def _tape_batch(seg, ex, dev, n_used, cached):
+    """A B = 2, T = 8 batch whose slots hold the segment's top terms, the
+    first `cached` of each row read from the hot planes."""
+    df = np.asarray(seg.term_df)
+    top = [int(t) for t in np.argsort(-df)[:16]]
+    B, T = 2, 8
+    cs = np.zeros((seg.n_windows, B * T), np.int32)
+    cn = np.zeros_like(cs)
+    cids = np.full(B * T, -1, np.int32)
+    for b in range(B):
+        tids = top[b * 3 : b * 3 + n_used]
+        c_s, c_n = compute_cells(seg, tids)
+        cs[:, b * T : b * T + n_used] = c_s
+        cn[:, b * T : b * T + n_used] = c_n
+        for s_, t in enumerate(tids[:cached]):
+            cids[b * T + s_] = ex._hot.get(t, -1)
+    cn = cn * (cids[None, :] < 0)
+    rng = np.random.default_rng(n_used)
+    w = rng.uniform(0.5, 3.0, size=(B, 16)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (cs, cn, w, cids)]
+
+
+def _tok(s):
+    return ("tok", s, s)
+
+
+def _chain(slots):
+    """A right-leaning and/or chain over the slots: its depth is their
+    count, so long chains need the 8- and 16-register kernels."""
+    node = _tok(slots[-1])
+    for i, s in enumerate(reversed(slots[:-1])):
+        node = ("and" if i % 2 else "or", _tok(s), node)
+    return node
+
+
+TAPES_BY_USED = {
+    1: [("opt", _tok(0)), ("not", _tok(0), ("unot", _tok(0))),
+        ("some", 1, (_tok(0), _tok(0)))],
+    4: [("or", ("and", _tok(0), _tok(1)), ("and", _tok(2), _tok(3))),
+        ("some", 2, (_tok(0), ("not", _tok(1), _tok(2)), _tok(3), _tok(0)))],
+    8: [("or", ("and", _tok(0), ("opt", _tok(1))),
+         ("not", ("some", 2, tuple(_tok(i) for i in range(2, 8))),
+          ("unot", _tok(0)))),
+        _chain(list(range(8))),
+        _chain(list(range(8)) * 2)],
+}
+
+
+@pytest.mark.parametrize("n_used", [1, 4, 8])
+def test_tape_kernel_register_programs(dev, seg, hot_cfg, n_used):
+    """K3 at U = 1, 4 and 8 used slots, with programs of 4, 8 and 16
+    registers (k-of-n, NOT, optional, unary NOT, slot reuse), cached and
+    decoded slots, deletions: scores and maxima equal the plain version."""
+    ex = Executor(seg, dev)
+    ex.set_masked_local_docs(np.arange(0, seg.n_docs, 9))
+    cs, cn, w, cids = _tape_batch(seg, ex, dev, n_used, cached=n_used // 2)
+    nregs = set()
+    for tape in TAPES_BY_USED[n_used]:
+        assert len(tape_used_slots(tape)) == n_used
+        nregs.add(encode_tape(tape, tape_used_slots(tape))[1])
+        args = (ex.bmeta, ex.planes, cs, cn, w, cids, ex.tf_planes,
+                seg.n_docs, ex._deleted_tiles)
+        got = fused_score_tiles(*args, tape=tape, scorer_name="bm25")
+        want = fused_score_tiles_ref(*args, tape=tape, scorer_name="bm25")
+        torch.cuda.synchronize()
+        assert_scores(got[0], want[0])
+        assert_scores(got[1], want[1])
+        assert torch.isfinite(want[0]).any()
+    if n_used == 8:
+        assert max(nregs) > 8  # the 16-register kernel ran

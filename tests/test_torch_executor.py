@@ -13,16 +13,17 @@ flat AND / OR / NOT / k-of-n / optional groups, an OR-of-AND (tape kernel)
 group and one >8-slot query (dense path). state_from_numpy of the JAX
 executor's device arrays equals the port's own state, and a pure phrase and
 a phrase inside an AND, batched with a boolean query, equal the JAX
-executor's results.
+executor's results. The corpus is built by both packages' builders (held
+equal); each executor gets its own package's segment, and the hot-term
+cache is configured in both packages.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from trinity_tpu.config import configure, get_config
+from torch_twins import bulk_pair, reconfigured
 from trinity_tpu.exec import Executor as JaxExecutor
-from trinity_tpu.index.builder import SegmentIndexSession
 from trinity_tpu.oracle import OracleCorpus, oracle_search
 from trinity_tpu.query.parser import parse_query
 from trinity_tpu_torch import Executor, state_from_numpy
@@ -55,28 +56,23 @@ def corpus():
     toks = rng.choice(vocab, size=int(bounds[-1]), p=zipf)
     names = [f"t{i}" for i in range(vocab)]
     doc_ids = np.arange(n_docs) * 3 + 7
-    sess = SegmentIndexSession()
-    sess.bulk_index_ids(doc_ids, toks, bounds, names)
-    seg = sess.commit()
+    seg, ref_seg = bulk_pair(doc_ids, toks, bounds, names)
     oc = OracleCorpus()
     for d in range(n_docs):
         oc.add(int(doc_ids[d]), [names[t] for t in toks[bounds[d]:bounds[d + 1]]])
     masked = np.arange(0, n_docs, 13)
-    return seg, oc, masked, {int(doc_ids[i]) for i in masked}
+    return (seg, ref_seg), oc, masked, {int(doc_ids[i]) for i in masked}
 
 
 @pytest.fixture(scope="module")
 def hot():
-    cfg = get_config()
-    saved = (cfg.hot_cache_bytes, cfg.hot_cache_min_df)
-    configure(hot_cache_bytes=64 << 20, hot_cache_min_df=3000)
-    yield
-    configure(hot_cache_bytes=saved[0], hot_cache_min_df=saved[1])
+    with reconfigured(hot_cache_bytes=64 << 20, hot_cache_min_df=3000):
+        yield
 
 
 @pytest.fixture(scope="module")
 def port(corpus, hot):
-    seg, _, masked, _ = corpus
+    (seg, _), _, masked, _ = corpus
     ex = Executor(seg, device="cpu")
     assert 0 < len(ex._hot) < seg.n_terms
     ex.set_masked_local_docs(masked)
@@ -87,8 +83,8 @@ def port(corpus, hot):
 
 @pytest.fixture(scope="module")
 def jax_run(corpus, hot):
-    seg, _, masked, _ = corpus
-    jx = JaxExecutor(seg)
+    (_, ref_seg), _, masked, _ = corpus
+    jx = JaxExecutor(ref_seg)
     jx.set_masked_local_docs(masked)
     return jx, jx.search_batch(QUERIES, k=10)
 

@@ -21,8 +21,12 @@ import torch
 import trinity_tpu.ops.fusedscore as ref
 import trinity_tpu_torch.models.similarity as port_sim
 import trinity_tpu_torch.ops.fusedscore as port
-from trinity_tpu.index.builder import SegmentIndexSession
+from torch_twins import bulk_pair
 from trinity_tpu_torch.ops.postings import (
+    C_BD,
+    C_BF,
+    C_COUNT,
+    C_FIRST,
     compute_cells,
     materialize_freq_tiles_ref,
     pack_block_meta,
@@ -43,12 +47,10 @@ def inputs():
     lens = rng.integers(2, 12, size=n_docs)
     bounds = np.zeros(n_docs + 1, np.int64)
     np.cumsum(lens, out=bounds[1:])
-    sess = SegmentIndexSession()
-    sess.bulk_index_ids(
+    seg, _ = bulk_pair(
         np.arange(n_docs), rng.choice(vocab, size=int(bounds[-1]), p=zipf),
         bounds, [f"t{i}" for i in range(vocab)],
     )
-    seg = sess.commit()
     W, B, T = seg.n_windows, 4, 4
     assert W == 2 and seg.n_docs % 16384
     bmeta = pack_block_meta(seg)
@@ -155,15 +157,90 @@ def test_tfidf_sqrt_is_ieee():
 
 
 def test_encode_tape_postfix():
-    prog = port.encode_tape(TAPES[1], port.tape_used_slots(TAPES[1]))
-    ops = [int(r[0]) for r in prog]
-    assert ops == [port.OP_TOK, port.OP_TOK, port.OP_OPT, port.OP_AND,
-                   port.OP_TOK, port.OP_TOK, port.OP_TOK, port.OP_SOME,
-                   port.OP_TOK, port.OP_UNOT, port.OP_UNOT, port.OP_NOT,
-                   port.OP_OR]
-    assert list(prog[7]) == [port.OP_SOME, 2, 3]
+    """The tape kernel's register program: each node evaluated into a
+    register with those above it free (binary ops combine r and r + 1),
+    k-of-n folded child by child (SACC) and closed by SFIN."""
+    prog, nreg = port.encode_tape(TAPES[1], port.tape_used_slots(TAPES[1]))
+    assert prog.shape == (15, 4) and nreg == 3
+    assert [tuple(int(x) for x in r[:2]) for r in prog] == [
+        (port.OP_TOK, 0), (port.OP_TOK, 1), (port.OP_OPT, 1),
+        (port.OP_AND, 0), (port.OP_TOK, 1), (port.OP_TOK, 2),
+        (port.OP_SACC, 1), (port.OP_TOK, 2), (port.OP_SACC, 1),
+        (port.OP_SFIN, 1), (port.OP_TOK, 2), (port.OP_UNOT, 2),
+        (port.OP_UNOT, 2), (port.OP_NOT, 1), (port.OP_OR, 0)]
+    assert list(prog[9]) == [port.OP_SFIN, 1, 2, 0]
+    assert list(prog[7]) == [port.OP_TOK, 2, 1, 1]  # slot 1 reused: tile 1
     with pytest.raises(ValueError):
         port.encode_tape(("phrase", (0, 1), 0), (0, 1))
+    deep = ("tok", 0, 0)
+    for _ in range(16):
+        deep = ("or", ("tok", 0, 0), deep)
+    with pytest.raises(ValueError):
+        port.encode_tape(deep, (0,))  # 17 registers
+
+
+PROGRAM_TAPES = {
+    "or-of-and": TAPES[0],
+    "k-of-n": ("some", 2, (("tok", 0, 0), ("tok", 1, 1), ("tok", 2, 2),
+                           ("tok", 3, 3))),
+    "not": ("not", ("or", ("tok", 0, 0), ("tok", 1, 1)),
+            ("and", ("tok", 2, 2), ("tok", 3, 3))),
+    "optional": ("and", ("tok", 0, 0), ("and", ("opt", ("tok", 1, 1)),
+                                        ("opt", ("tok", 2, 2)))),
+    "slot-reuse": TAPES[1],
+}
+
+
+@pytest.mark.parametrize("name", sorted(PROGRAM_TAPES))
+def test_register_program_equals_tape_ref(inputs, name):
+    """The register program, run by eval_program over the staged tiles,
+    equals fused_score_tiles_ref bit for bit (masks and f32 scores)."""
+    d = inputs
+    tape = PROGRAM_TAPES[name]
+    args = [_torch(d[n]) for n in ("bmeta", "planes", "cs", "cn", "weights",
+                                   "cids", "tf_planes")]
+    want, _ = port.fused_score_tiles_ref(
+        *args, d["seg"].n_docs, _torch(d["deleted"]), tape=tape,
+        scorer_name="bm25")
+    bmeta, planes, cs, cn, weights, cids, tf_planes = args
+    B, T, W = d["B"], d["T"], d["W"]
+    tiles = port._slot_tiles(bmeta, planes, cs, cn, cids, tf_planes)
+    tiles = tiles.reshape(W, B, T, 128, 128).transpose(0, 1)
+    used = port.tape_used_slots(tape)
+    prog, _ = port.encode_tape(tape, used)
+    mask, score = port.eval_program(
+        prog, {u: tiles[:, :, s] for u, s in enumerate(used)},
+        lambda i: weights[:, i].reshape(B, 1, 1, 1), "bm25")
+    got, _ = port._epilogue(mask, score, d["seg"].n_docs, _torch(d["deleted"]))
+    assert torch.equal(got, want)
+    assert torch.isfinite(want).any()
+
+
+def test_score_bytes_by_hand():
+    """score_bytes on a hand-made bmeta: one query row, two slots; slot 0
+    decodes blocks 0-1 in window 0 and block 1 again in window 1 (a
+    boundary block: counted once), slot 1 is cached (one plane tile a
+    window). With zero planes every posting of a block sits on its first
+    doc: block 0 holds 3 postings of doc 5, block 1 2 of doc 0, so window
+    0 scores 5 postings and window 1 none (doc 0 lies outside it)."""
+    bmeta = torch.zeros((2, 128), dtype=torch.int32)
+    meta = bmeta.reshape(-1, 8)
+    meta[0, [C_BD, C_BF, C_FIRST, C_COUNT]] = torch.tensor(
+        [5, 3, 5, 3], dtype=torch.int32)
+    meta[1, [C_BD, C_BF, C_FIRST, C_COUNT]] = torch.tensor(
+        [7, 1, 0, 2], dtype=torch.int32)
+    planes = torch.zeros((16, 128), dtype=torch.int32)
+    cs = torch.tensor([[0, 0], [1, 0]], dtype=torch.int32)
+    cn = torch.tensor([[2, 0], [1, 0]], dtype=torch.int32)
+    cids = torch.tensor([-1, 0], dtype=torch.int32)
+    deleted = torch.zeros((2, 128, 128))
+    nbytes, ops = port.score_bytes(bmeta, planes, cs, cn, cids, 1, deleted, 2)
+    out = 1 * 2 * (16384 + 16 * 128) * 4  # scores + sub-block maxima
+    tables = 2 * 4 * 4 + 2 * 4 + 1 * 2 * 4  # cell tables, cids, weights
+    blocks = 2 * 32 + 128 * (5 + 3 + 7 + 1) // 8  # rows + plane bits
+    hot = 1 * 2 * 16384 * 4  # one cached term, two windows
+    assert nbytes == out + tables + blocks + hot + 2 * 16384 * 4
+    assert ops == 4 * 5
 
 
 def _tie_heavy(rng, B, W):

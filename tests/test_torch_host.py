@@ -1,0 +1,173 @@
+"""The port's own copies of the JAX package's host modules agree with it.
+
+- The same documents through both packages' SegmentIndexSession give
+  segments equal array by array: the begin/insert route with positions and
+  deletions (erase), and the bulk_index_ids route.
+- A segment persisted by either package loads in the other, equal.
+- parse_query and compile_plan agree (AST, its text, tapes, term lists,
+  weight terms) on every query of the port's tests and on bench.py's
+  query generator over a small corpus.
+- The two packages' Config() defaults and limits are equal.
+- chip_smoke's corpus build, at a small N_DOCS / VOCAB, writes the same
+  docs.bin bytes and the same segment as bench._build_corpus_fresh.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+import bench
+import chip_smoke
+import test_torch_cuda
+import test_torch_executor
+import test_torch_phrases
+import trinity_tpu.config as ref_config
+import trinity_tpu.limits as ref_limits
+import trinity_tpu_torch.config as port_config
+import trinity_tpu_torch.limits as port_limits
+from torch_twins import assert_same_segment, build_pair, bulk_pair
+from trinity_tpu.index.format import SegmentData as RefSegmentData
+from trinity_tpu.plan.compile import compile_plan as ref_compile
+from trinity_tpu.query.parser import parse_query as ref_parse
+from trinity_tpu_torch.index.format import SegmentData as PortSegmentData
+from trinity_tpu_torch.plan.compile import compile_plan as port_compile
+from trinity_tpu_torch.query.parser import parse_query as port_parse
+
+
+def _docs(seed=11, n=600, vocab=40):
+    rng = np.random.default_rng(seed)
+    return {int(d): [f"t{int(t)}" for t in rng.integers(0, vocab, size=int(
+        rng.integers(1, 90)))] for d in rng.choice(10 * n, n, replace=False)}
+
+
+def test_builders_agree_with_positions_and_deletions():
+    """begin/insert with positions (some repeated within a doc, runs past
+    128 positions), payload-free, plus erased ids: equal segments."""
+    docs = _docs()
+
+    def fill(sess):
+        for d, toks in docs.items():
+            p = sess.begin(d)
+            for pos, t in enumerate(toks, start=1):
+                p.insert(t, pos)
+            if d % 5 == 0:
+                p.insert(toks[0], 1)  # a repeated (term, position)
+            sess.insert(p)
+        for d in (3, 17, 50_000):
+            sess.erase(d)
+
+    seg, _ = build_pair(fill)
+    assert seg.n_docs == len(docs) and len(seg.updated_ids) > 0
+    assert not seg.positions_distinct and seg.max_position > 80
+
+
+def test_builders_agree_bulk_route():
+    rng = np.random.default_rng(4)
+    n_docs, vocab = 20_000, 300
+    zipf = 1.0 / np.arange(1, vocab + 1)
+    zipf /= zipf.sum()
+    bounds = np.zeros(n_docs + 1, np.int64)
+    np.cumsum(rng.integers(1, 30, size=n_docs), out=bounds[1:])
+    toks = rng.choice(vocab, size=int(bounds[-1]), p=zipf)
+    seg, _ = bulk_pair(np.arange(n_docs) * 5 + 2, toks, bounds,
+                       [f"w{i}" for i in range(vocab)])
+    assert seg.n_windows == 2 and seg.positions_distinct
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_persisted_segment_loads_in_the_other(tmp_path, writer):
+    seg, ref = build_pair(lambda s: s.bulk_index_ids(
+        np.arange(500), np.arange(2000) % 37, np.arange(0, 2001, 4),
+        [f"x{i}" for i in range(37)]))
+    (seg if writer == "port" else ref).persist(str(tmp_path / "seg"))
+    got = PortSegmentData.load(str(tmp_path / "seg"))
+    want = RefSegmentData.load(str(tmp_path / "seg"))
+    assert_same_segment(got, want)
+    assert got.n_terms == seg.n_terms and got.term_id("x5") == seg.term_id("x5")
+    np.testing.assert_array_equal(got.planes, seg.planes)
+
+
+def _test_queries():
+    """The query strings of the port's tests."""
+    qs = list(test_torch_executor.QUERIES) + list(test_torch_phrases.QUERIES)
+    qs += test_torch_cuda.QUERIES + test_torch_cuda.PHRASE_QUERIES
+    qs += ["a c", "a OR d", "c NOT b", "(a b) OR (c d)", '"a b"', '"b c" OR d',
+           '"c a" a', "", "NOT a", "<a>", "a a b", '"a"', "[a, b, c]/4"]
+    return qs
+
+
+class _Tiered:
+    """A small segment whose document frequencies are scaled up, so that
+    bench.make_queries finds its hot / mid / rare tiers in it."""
+
+    def __init__(self, seg, scale):
+        self.term_id = seg.term_id
+        self.term_df = np.asarray(seg.term_df).astype(np.int64) * scale
+
+
+def _bench_queries(monkeypatch, tmp_path):
+    monkeypatch.setattr(bench, "N_DOCS", 40_000)
+    monkeypatch.setattr(bench, "VOCAB", 20_000)
+    monkeypatch.setattr(bench, "CACHE_ROOT", str(tmp_path))
+    seg = chip_smoke.build_corpus()
+    texts, _ = bench.make_queries(_Tiered(seg, 30),
+                                  np.random.default_rng(bench.SEED + 1))
+    return texts
+
+
+def test_parser_and_plan_compiler_agree(monkeypatch, tmp_path):
+    qs = _test_queries() + _bench_queries(monkeypatch, tmp_path)
+    assert len(qs) > 150 and any(q.startswith('"') for q in qs)
+    for q in qs:
+        got, want = port_parse(q), ref_parse(q)
+        assert repr(got.root) == repr(want.root), q
+        assert str(got) == str(want), q
+        assert got.tokens_count == want.tokens_count, q
+        if want.root is None:
+            continue
+        a, b = port_compile(got.root), ref_compile(want.root)
+        assert (a.tape, a.term_texts, a.weight_terms, a.has_phrase) == (
+            b.tape, b.term_texts, b.weight_terms, b.has_phrase), q
+
+
+def test_config_defaults_and_limits_equal():
+    assert (dataclasses.asdict(port_config.Config())
+            == dataclasses.asdict(ref_config.Config()))
+    names = [n for n in dir(ref_limits) if n.isupper()]
+    assert names
+    for n in names:
+        assert getattr(port_limits, n) == getattr(ref_limits, n), n
+
+
+def test_configure_reaches_only_its_own_package():
+    """The two packages keep separate configs: configuring one leaves the
+    other as it was (tests steer each package with its own configure)."""
+    before = ref_config.get_config().posmask_min_df
+    old = port_config.get_config().posmask_min_df
+    port_config.configure(posmask_min_df=before + 1)
+    try:
+        assert ref_config.get_config().posmask_min_df == before
+        assert port_config.get_config().posmask_min_df == before + 1
+    finally:
+        port_config.configure(posmask_min_df=old)
+
+
+def test_chip_smoke_corpus_equals_bench_corpus(monkeypatch, tmp_path):
+    """chip_smoke.build_corpus (the port's builder) against
+    bench._build_corpus_fresh (the JAX package's) on bench's token draw at
+    a small size: docs.bin byte for byte, and the persisted segments."""
+    monkeypatch.setattr(bench, "N_DOCS", 5_000)
+    monkeypatch.setattr(bench, "VOCAB", 3_000)
+    out = {}
+    for name, build in (("port", chip_smoke.build_corpus),
+                        ("bench", bench._build_corpus_fresh)):
+        monkeypatch.setattr(bench, "CACHE_ROOT", str(tmp_path / name))
+        build()
+        with open(bench._docs_bin(), "rb") as f:
+            out[name] = (f.read(), os.path.join(bench._cache_dir(), "seg"))
+    assert out["port"][0] == out["bench"][0]
+    assert len(out["port"][0]) > 5_000 * 40 * 4
+    assert_same_segment(PortSegmentData.load(out["port"][1]),
+                        RefSegmentData.load(out["bench"][1]))

@@ -1,14 +1,21 @@
-"""The port stands without JAX, and never hides a missing device.
+"""The port stands alone, without JAX and without the JAX package, and
+never hides a missing device.
 
 - In a subprocess where ``import jax`` fails (``sys.modules["jax"] =
-  None``), ``import trinity_tpu_torch`` works and a tiny CPU search runs
-  and agrees with the oracle, phrases included (posmask, lazy and
-  compound paths), and every module of the port imports.
-- No source file of the port imports jax or ``trinity_tpu.ops``.
-- ``Executor(seg, device="cuda")`` raises when torch sees no card, and a
-  kernel build without nvcc raises instead of falling back.
+  None``) and a meta-path finder refuses ``trinity_tpu`` and every
+  ``trinity_tpu.*``, every module of the port imports and a tiny CPU
+  search runs, phrases included (posmask, lazy and compound paths); no
+  ``trinity_tpu`` module is loaded. Only then is the finder removed and the
+  oracle (``trinity_tpu.oracle``, with the JAX package's parser) imported,
+  and the results must agree with it.
+- No source file of the port, and not chip_smoke.py, imports jax or
+  ``trinity_tpu`` / ``trinity_tpu.*``.
+- ``Executor(seg)`` runs on the card by default: without one it raises,
+  as ``Executor(seg, device="cuda")`` does; a kernel build without nvcc
+  raises instead of falling back.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -17,40 +24,63 @@ import numpy as np
 import pytest
 import torch
 
-from trinity_tpu.index.builder import SegmentIndexSession
-from trinity_tpu_torch import Executor
+from trinity_tpu_torch import Executor, SegmentIndexSession
 from trinity_tpu_torch.utils import kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _NO_JAX = r"""
-import sys
+import importlib, os, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
+
+
+class Refuse:  # refuses the JAX package: trinity_tpu and trinity_tpu.*
+    def find_spec(self, name, path=None, target=None):
+        if name == "trinity_tpu" or name.startswith("trinity_tpu."):
+            raise ImportError(f"refused: {name}")
+        return None
+
+
+refuse = Refuse()
+sys.meta_path.insert(0, refuse)
 import trinity_tpu_torch
-from trinity_tpu_torch import Executor, SegmentIndexSession, parse_query
-from trinity_tpu.oracle import OracleCorpus, oracle_search
+from trinity_tpu_torch import Executor, SegmentIndexSession, configure
+
+pkg = os.path.dirname(trinity_tpu_torch.__file__)
+names = [m.name for m in pkgutil.walk_packages([pkg], "trinity_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) >= 25, names
 
 docs = {1: "a b c a", 2: "b c", 3: "a c d", 4: "d d a", 5: "b"}
-sess, oc = SegmentIndexSession(), OracleCorpus()
+sess = SegmentIndexSession()
 for d, text in docs.items():
     p = sess.begin(d)
     for pos, t in enumerate(text.split(), start=1):
         p.insert(t, pos)
     sess.insert(p)
-    oc.add(d, text.split())
 ex = Executor(sess.commit(), device="cpu")
 qs = ("a c", "a OR d", "c NOT b", "(a b) OR (c d)", '"a b"', '"b c" OR d',
       '"c a" a')
-for q in qs:
-    got = [(r.doc_id, r.score) for r in ex.search(q, k=3)]
-    want = oracle_search(oc, parse_query(q).root, k=3)
-    assert [d for d, _ in got] == [d for d, _ in want], (q, got, want)
-trinity_tpu_torch.configure(use_posmask=False)
-ex = Executor(ex.seg, device="cpu")
-assert [r.doc_id for r in ex.search('"a b"')] == [1]
-import trinity_tpu_torch.exec.phrases, trinity_tpu_torch.ops.posmask
-import trinity_tpu_torch.ops.select, trinity_tpu_torch.utils.kernels
+got = {q: [r.doc_id for r in ex.search(q, k=3)] for q in qs}
+configure(use_posmask=False)
+lazy = [r.doc_id for r in Executor(ex.seg, device="cpu").search('"a b"')]
+loaded = [m for m in sys.modules
+          if m == "trinity_tpu" or m.startswith("trinity_tpu.")]
+assert not loaded, loaded
 assert sys.modules["jax"] is None
+sys.meta_path.remove(refuse)
+
+from trinity_tpu.oracle import OracleCorpus, oracle_search
+from trinity_tpu.query.parser import parse_query
+
+oc = OracleCorpus()
+for d, text in docs.items():
+    oc.add(d, text.split())
+for q in qs:
+    want = [d for d, _ in oracle_search(oc, parse_query(q).root, k=3)]
+    assert got[q] == want, (q, got[q], want)
+assert lazy == [1]
 print("OK")
 """
 
@@ -64,43 +94,42 @@ def test_port_imports_and_searches_without_jax():
     assert r.stdout.strip().endswith("OK")
 
 
-def test_port_sources_import_no_jax_and_no_reference_ops():
-    """No module of the port imports jax or a trinity_tpu.ops module (the
-    reference's ops modules hold its Pallas kernels)."""
-    import ast
+def _imported_names(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
 
+
+def _refused(name):
+    top = name.split(".")[0]
+    return top in ("jax", "trinity_tpu")
+
+
+def test_port_sources_import_no_jax_and_no_reference_ops():
+    """No module of the port imports jax or any trinity_tpu module (the
+    name is kept from when only the reference's ops modules were
+    refused)."""
     pkg = os.path.join(REPO, "trinity_tpu_torch")
     # the port's sources; _build holds build outputs, not sources
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
              if f.endswith(".py")
              and "_build" not in os.path.relpath(d, pkg).split(os.sep)]
-    assert len(files) >= 12
+    assert len(files) >= 25
     for path in files:
-        for node in ast.walk(ast.parse(open(path).read())):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for n in names:
-                assert n.split(".")[0] != "jax", (path, n)
-                assert not n.startswith("trinity_tpu.ops"), (path, n)
+        for n in _imported_names(path):
+            assert not _refused(n), (path, n)
 
 
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py reaches the host code through trinity_tpu_torch: it
     imports neither jax nor any trinity_tpu module."""
-    import ast
-
-    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
-    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
-             for a in n.names]
-    names += [n.module or "" for n in ast.walk(tree)
-              if isinstance(n, ast.ImportFrom)]
+    names = list(_imported_names(os.path.join(REPO, "chip_smoke.py")))
     assert "trinity_tpu_torch" in names
     for n in names:
-        assert n.split(".")[0] not in ("jax", "trinity_tpu"), n
+        assert not _refused(n), n
 
 
 def _tiny_segment():
@@ -116,6 +145,16 @@ def test_cuda_executor_raises_without_a_card():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="is_available"):
         Executor(_tiny_segment(), device="cuda")
+
+
+def test_default_device_is_the_card():
+    """Executor(seg) with no device asks for the card, so on a host
+    without one it raises rather than running on the CPU."""
+    if torch.cuda.is_available():
+        assert Executor(_tiny_segment()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="is_available"):
+        Executor(_tiny_segment())
 
 
 def test_unknown_device_raises():

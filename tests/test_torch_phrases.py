@@ -20,7 +20,9 @@ phrases inside AND / OR / NOT / k-of-n trees) on test_posmask.py's
     that forces the lazy path's unresolved fallback;
 ids exactly, scores within 2 ulp (rtol=2.4e-7, atol=0). Also: a segment
 with no postings (erase-only), duplicate positions (posmask gated off),
-max_position past the word budget, and a three-window segment.
+max_position past the word budget, and a three-window segment. Every
+corpus is built by both packages' builders (held equal); each executor
+gets its own package's segment, and config knobs are set in both.
 """
 
 import contextlib
@@ -31,10 +33,9 @@ import pytest
 import torch
 
 import trinity_tpu.ops.select as ref_select
-from trinity_tpu.config import configure, get_config
+from torch_twins import build_pair, docs_pair, reconfigured
 from trinity_tpu.exec import Executor as JaxExecutor
 from trinity_tpu.exec.phrases import verify_phrases_device as jax_verify
-from trinity_tpu.index.builder import SegmentIndexSession
 from trinity_tpu.oracle import OracleCorpus, oracle_search
 from trinity_tpu.query.parser import parse_query
 from trinity_tpu.utils.bitpack import pack_value_groups
@@ -51,26 +52,13 @@ COMPOUND = ['"t0 t1" OR t5', 't3 AND "t0 t2"', '"t0 t1" NOT t2',
 QUERIES = PHRASES + COMPOUND + ["t0 t1", "t3 OR t4"]
 
 
-@contextlib.contextmanager
-def reconfigured(**kw):
-    old = {k: getattr(get_config(), k) for k in kw}
-    configure(**kw)
-    try:
-        yield
-    finally:
-        configure(**old)
-
-
 def build(docs):
-    """{doc id: tokens} -> (segment, oracle corpus), positions from 1."""
-    sess, corpus = SegmentIndexSession(), OracleCorpus()
+    """{doc id: tokens} -> (port segment, reference segment, oracle
+    corpus), positions from 1."""
+    corpus = OracleCorpus()
     for d, toks in docs.items():
         corpus.add(d, toks)
-        p = sess.begin(d)
-        for pos, t in enumerate(toks, start=1):
-            p.insert(t, pos)
-        sess.insert(p)
-    return sess.commit(), corpus
+    return (*docs_pair(docs), corpus)
 
 
 @pytest.fixture(scope="module")
@@ -90,11 +78,11 @@ def phrased():
         if r > 0.8:
             toks[1:3] = ["t2", "t2"]
         docs[d] = toks
-    seg, corpus = build(docs)
+    seg, ref_seg, corpus = build(docs)
     assert seg.positions_distinct
     masked = {d for d in docs if d % 7 == 0}
     local = np.flatnonzero(np.isin(seg.doc_map, sorted(masked)))
-    return seg, corpus, masked, local
+    return (seg, ref_seg), corpus, masked, local
 
 
 def same(got, want, what):
@@ -233,9 +221,9 @@ def port_executor(seg, local, name):
 
 @pytest.mark.parametrize("name", MODES)
 def test_phrases_equal_jax_executor(phrased, name):
-    seg, _, _, local = phrased
+    (seg, ref_seg), _, _, local = phrased
     with mode(name):
-        jx = JaxExecutor(seg)
+        jx = JaxExecutor(ref_seg)
         jx.set_masked_local_docs(local)
         if name == "host":
             no_caps(jx)
@@ -254,7 +242,7 @@ def test_phrases_equal_jax_executor(phrased, name):
 @pytest.mark.parametrize("scorer", ["bm25", "tfidf", "trivial"])
 @pytest.mark.parametrize("name", MODES)
 def test_phrases_equal_oracle(phrased, name, scorer):
-    seg, corpus, masked, local = phrased
+    (seg, _), corpus, masked, local = phrased
     with mode(name):
         got = port_executor(seg, local, name).search_batch(QUERIES, k=10,
                                                            scorer=scorer)
@@ -265,7 +253,7 @@ def test_phrases_equal_oracle(phrased, name, scorer):
 
 
 def test_posmask_hot_cache_holds_every_term(phrased):
-    seg, corpus, masked, local = phrased
+    (seg, _), corpus, masked, local = phrased
     with reconfigured(posmask_min_df=1, posmask_cache_bytes=1 << 30):
         ex = Executor(seg, "cpu")
         ex.set_masked_local_docs(local)
@@ -286,7 +274,7 @@ def test_posmask_hot_cache_holds_every_term(phrased):
 def test_posmask_group_mixes_cache_and_kernel(phrased):
     """A cache for the 10 highest-df terms: a group reads cached members
     from the cache and only the uncached ones from the kernel's output."""
-    seg, corpus, masked, local = phrased
+    (seg, _), corpus, masked, local = phrased
     per_term = seg.n_windows * (-(-(seg.max_position + 1) // 32)) * 128 * 128 * 4
     with reconfigured(posmask_min_df=1, posmask_cache_bytes=10 * per_term):
         ex = Executor(seg, "cpu")
@@ -305,7 +293,7 @@ def test_posmask_group_mixes_cache_and_kernel(phrased):
 
 
 def test_lazy_overflow_falls_back_exactly(phrased):
-    seg, corpus, _, _ = phrased
+    (seg, _), corpus, _, _ = phrased
     with reconfigured(use_posmask=False, phrase_lazy_candidates=4,
                       phrase_lazy_max_candidates=4):
         ex = Executor(seg, "cpu")
@@ -318,7 +306,7 @@ def test_lazy_overflow_falls_back_exactly(phrased):
 
 
 def test_search_is_batch_of_one(phrased):
-    seg, _, _, local = phrased
+    (seg, _), _, _, local = phrased
     ex = port_executor(seg, local, "posmask")
     batch = ex.search_batch(QUERIES, k=5)
     for q, b in zip(QUERIES, batch):
@@ -328,10 +316,11 @@ def test_search_is_batch_of_one(phrased):
 def test_empty_segment():
     """A segment with no postings blocks (erase-only): phrases and
     boolean queries return nothing, on every route."""
-    sess = SegmentIndexSession()
-    sess.erase(7)
-    sess.erase(9)
-    seg = sess.commit()
+    def fill(sess):
+        sess.erase(7)
+        sess.erase(9)
+
+    seg, _ = build_pair(fill)
     assert len(seg.block_hits_off) == 0 and seg.n_docs == 0
     for name in MODES:
         with mode(name):
@@ -343,27 +332,28 @@ def test_empty_segment():
 def test_duplicate_positions_gate_posmask_off():
     """A doc inserting the same (term, position) twice: popcount would
     lose the anchored multiplicity, so the posmask path is gated off."""
-    sess = SegmentIndexSession()
-    for d, toks in ((1, ["a", "b", "c"]), (2, ["b", "a", "b"])):
-        p = sess.begin(d)
-        for pos, t in enumerate(toks, start=1):
-            p.insert(t, pos)
-        if d == 1:
-            p.insert("a", 1)
-        sess.insert(p)
-    seg = sess.commit()
+    def fill(sess):
+        for d, toks in ((1, ["a", "b", "c"]), (2, ["b", "a", "b"])):
+            p = sess.begin(d)
+            for pos, t in enumerate(toks, start=1):
+                p.insert(t, pos)
+            if d == 1:
+                p.insert("a", 1)
+            sess.insert(p)
+
+    seg, ref_seg = build_pair(fill)
     assert not seg.positions_distinct
     ex = Executor(seg, "cpu")
     assert not ex._posmask_enabled
     got = ex.search('"a b"', k=10, scorer="trivial")
-    want = JaxExecutor(seg).search('"a b"', k=10, scorer="trivial")
+    want = JaxExecutor(ref_seg).search('"a b"', k=10, scorer="trivial")
     assert pairs(got) == pairs(want)
     assert [r.doc_id for r in got] == [1, 2] and got[0].score == 2.0
 
 
 def test_max_position_gates_posmask():
-    seg, corpus = build({1: ["a", "b"] + ["x"] * 200 + ["a", "b"],
-                         2: ["b", "a"], 3: ["a", "b", "c"]})
+    seg, _, corpus = build({1: ["a", "b"] + ["x"] * 200 + ["a", "b"],
+                            2: ["b", "a"], 3: ["a", "b", "c"]})
     assert seg.positions_distinct
     ex = Executor(seg, "cpu")
     assert not ex._posmask_enabled  # positions up to 204 > 32 * 4
@@ -386,7 +376,7 @@ def test_multiwindow_phrases():
         if d % 5 == 0:
             toks[1:3] = ["t0", "t1"]
         docs[d] = toks
-    seg, corpus = build(docs)
+    seg, _, corpus = build(docs)
     assert seg.n_windows == 2
     qs = ['"t0 t1"', '"t1 t2"', 't3 "t0 t1"']
     for name in MODES:

@@ -11,7 +11,12 @@
 - phrase_freq_from_masks equals the JAX function on random words (bit 31
   set, shifts across word boundaries, a repeated member); its SWAR popcount
   equals np.bitwise_count.
-Integer outputs: exact equality.
+- The wrapper writes into a destination view (a slice of a larger cache),
+  and the executor's hot cache, filled in place chunk by chunk, equals the
+  plain version; posmask_bytes and decode_bytes give the byte counts
+  worked out by hand.
+Integer outputs: exact equality. Segments are built by both packages'
+builders (held equal); each side reads its own package's segment.
 """
 
 import jax.numpy as jnp
@@ -21,40 +26,51 @@ import torch
 
 import trinity_tpu.ops.posmask as ref
 import trinity_tpu_torch.ops.posmask as port
+from torch_twins import build_pair, bulk_pair, reconfigured
 from trinity_tpu.exec import Executor as JaxExecutor
-from trinity_tpu.index.builder import SegmentIndexSession
 from trinity_tpu_torch import Executor
-from trinity_tpu_torch.ops.postings import compute_cells
+from trinity_tpu_torch.ops.postings import (
+    C_BD,
+    C_BF,
+    C_COUNT,
+    C_FIRST,
+    C_HITS,
+    compute_cells,
+    decode_bytes,
+)
 from trinity_tpu_torch.utils import kernels
 
 
 def phrased_segment():
     """test_posmask.py's `phrased` corpus: 500 docs, forced bigrams,
-    trigrams and repeats."""
-    rng = np.random.default_rng(91)
-    sess = SegmentIndexSession()
-    zipf = 1.0 / np.arange(1, 31)
-    zipf /= zipf.sum()
-    for d in range(1, 501):
-        toks = [f"t{int(i)}" for i in rng.choice(30, size=int(rng.integers(6, 50)),
-                                                  p=zipf)]
-        r = rng.random()
-        if r < 0.3:
-            toks[2:4] = ["t0", "t1"]
-        if 0.2 < r < 0.5:
-            toks[0:3] = ["t5", "t6", "t7"]
-        if r > 0.8:
-            toks[1:3] = ["t2", "t2"]
-        p = sess.begin(d)
-        for pos, t in enumerate(toks, start=1):
-            p.insert(t, pos)
-        sess.insert(p)
-    return sess.commit()
+    trigrams and repeats; (port segment, reference segment)."""
+    def fill(sess):
+        rng = np.random.default_rng(91)
+        zipf = 1.0 / np.arange(1, 31)
+        zipf /= zipf.sum()
+        for d in range(1, 501):
+            toks = [f"t{int(i)}"
+                    for i in rng.choice(30, size=int(rng.integers(6, 50)),
+                                        p=zipf)]
+            r = rng.random()
+            if r < 0.3:
+                toks[2:4] = ["t0", "t1"]
+            if 0.2 < r < 0.5:
+                toks[0:3] = ["t5", "t6", "t7"]
+            if r > 0.8:
+                toks[1:3] = ["t2", "t2"]
+            p = sess.begin(d)
+            for pos, t in enumerate(toks, start=1):
+                p.insert(t, pos)
+            sess.insert(p)
+
+    return build_pair(fill)
 
 
 def multiwindow_segment():
     """36,000 docs over three windows, 3-120 tokens each; every 97th doc
-    holds a run of 60-115 copies of t0 (position runs across groups)."""
+    holds a run of 60-115 copies of t0 (position runs across groups);
+    (port segment, reference segment)."""
     rng = np.random.default_rng(5)
     n_docs, vocab = 36_000, 40
     zipf = 1.0 / np.arange(1, vocab + 1)
@@ -68,27 +84,25 @@ def multiwindow_segment():
         docs.append(toks)
     bounds = np.zeros(n_docs + 1, np.int64)
     np.cumsum([len(t) for t in docs], out=bounds[1:])
-    sess = SegmentIndexSession()
-    sess.bulk_index_ids(np.arange(n_docs) * 2 + 1, np.concatenate(docs),
-                        bounds, [f"t{i}" for i in range(vocab)])
-    return sess.commit()
+    return bulk_pair(np.arange(n_docs) * 2 + 1, np.concatenate(docs), bounds,
+                     [f"t{i}" for i in range(vocab)])
 
 
 @pytest.fixture(scope="module", params=["phrased", "multiwindow"])
 def case(request):
-    seg = phrased_segment() if request.param == "phrased" else (
+    seg, ref_seg = phrased_segment() if request.param == "phrased" else (
         multiwindow_segment())
     assert seg.positions_distinct
     terms = ["t0", "t1", "t2", "t7", "t29", "zz", "t5", "t3"]
     tids = [seg.term_id(t) for t in terms]
     cs, cn = compute_cells(seg, tids)
     cn[:, 6] = 0  # a cached member: its cell is zeroed
-    return seg, cs, cn
+    return (seg, ref_seg), cs, cn
 
 
 def test_posmask_ref_bit_equal_to_jax(case):
-    seg, cs, cn = case
-    jx = JaxExecutor(seg)
+    (seg, ref_seg), cs, cn = case
+    jx = JaxExecutor(ref_seg)
     PW = jx._pw_words
     dpr, ppr, gor, need_pos, need_goff = jx._pos_cell_rows(cs, cn)
     rpos = next(rb for rb in ref.RPOS_BUCKETS
@@ -146,3 +160,52 @@ def test_popcount_equals_numpy():
     x[:4] = [0, 1, 0xFFFFFFFF, 0x80000000]
     got = port.popcount32(torch.from_numpy(x.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy(), np.bitwise_count(x))
+
+
+def test_posmask_writes_into_a_cache_view():
+    """The wrapper (plain version on the CPU) writes into a strided slice of
+    a larger tensor and leaves the rest of it alone; the executor's posmask
+    hot cache, built in place chunk by chunk, equals the plain version over
+    every cached term."""
+    seg, _ = phrased_segment()
+    ex = Executor(seg, "cpu")
+    PW = ex._pw_words
+    tids = [seg.term_id(t) for t in ("t0", "t1", "t2", "t7", "zz")]
+    cs, cn = map(torch.from_numpy, compute_cells(seg, tids))
+    args = (ex.bmeta, ex.planes, ex.hit_pw, ex.hit_off, cs, cn, PW)
+    big = torch.full((seg.n_windows, 8, PW, 128, 128), 7, dtype=torch.int32)
+    got = port.materialize_posmask_tiles(*args, out=big[:, 2:7])
+    assert got.data_ptr() == big[:, 2:7].data_ptr()
+    assert torch.equal(big[:, 2:7], port.materialize_posmask_tiles_ref(*args))
+    assert (big[:, :2] == 7).all() and (big[:, 7:] == 7).all()
+    with pytest.raises(ValueError):  # a member's words must be contiguous
+        port.materialize_posmask_tiles(*args, out=big[:, 2:7].transpose(3, 4))
+    with reconfigured(posmask_min_df=1):
+        ex = Executor(seg, "cpu")
+        order = sorted(ex._pos_hot, key=ex._pos_hot.get)
+        assert len(order) > 8  # several chunks
+        cache = ex.pos_planes
+    cs, cn = map(torch.from_numpy, compute_cells(seg, order))
+    assert torch.equal(cache, port.materialize_posmask_tiles_ref(
+        ex.bmeta, ex.planes, ex.hit_pw, ex.hit_off, cs, cn, PW))
+
+
+def test_posmask_bytes_by_hand():
+    """One cell, PW = 2, one postings block of 3 postings (zero planes: all
+    on its first doc, freq 1) whose runs are elements 126-128 of the
+    positions stream: groups 0 (7-bit fields) and 1 (5-bit) are read."""
+    bmeta = torch.zeros((2, 128), dtype=torch.int32)
+    bmeta.reshape(-1, 8)[0, [C_BD, C_BF, C_FIRST, C_COUNT, C_HITS]] = (
+        torch.tensor([3, 2, 5, 3, 126], dtype=torch.int32))
+    planes = torch.zeros((8, 128), dtype=torch.int32)
+    hit_off = torch.tensor([0, 7, 12, 20], dtype=torch.int32)
+    cs = torch.zeros((1, 1), dtype=torch.int32)
+    cn = torch.ones((1, 1), dtype=torch.int32)
+    words = 1 * 1 * 2 * 16384 * 4
+    tables = 2 * 4
+    block = 32 + 128 * (3 + 2) // 8
+    groups = 128 * (7 + 5) // 8 + 2 * 4
+    assert port.posmask_bytes(bmeta, planes, hit_off, cs, cn, 2) == (
+        words + tables + block + groups)
+    assert decode_bytes(bmeta, cs, cn) == 16384 * 4 + tables + block
+    assert decode_bytes(bmeta, cs, cn, True) == 2 * 16384 * 4 + tables + block

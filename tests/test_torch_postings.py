@@ -8,6 +8,9 @@
   offsets, on a 3-window segment with freqs above 255 and wide bit widths.
   Freq and offset tiles are integers: they must match exactly.
 - On CPU tensors the wrapper runs that plain version.
+- decode_bytes and block_bytes give the byte counts worked out by hand.
+The segment is built by both packages' builders (held equal); the port's
+functions read the port's segment and the reference's the reference's.
 """
 
 import jax.numpy as jnp
@@ -17,7 +20,7 @@ import torch
 
 import trinity_tpu.ops.postings as ref
 import trinity_tpu_torch.ops.postings as port
-from trinity_tpu.index.builder import SegmentIndexSession
+from torch_twins import bulk_pair
 
 
 def make_segment(seed=3, n_docs=36_000, vocab=300):
@@ -34,17 +37,18 @@ def make_segment(seed=3, n_docs=36_000, vocab=300):
         docs[d].append(vocab + 1)
     bounds = np.zeros(n_docs + 1, np.int64)
     np.cumsum([len(d) for d in docs], out=bounds[1:])
-    sess = SegmentIndexSession()
-    sess.bulk_index_ids(
-        np.arange(n_docs) * 2, np.concatenate(docs), bounds,
-        [f"t{i}" for i in range(vocab + 2)],
-    )
-    return sess.commit()
+    return bulk_pair(np.arange(n_docs) * 2, np.concatenate(docs), bounds,
+                     [f"t{i}" for i in range(vocab + 2)])
 
 
 @pytest.fixture(scope="module")
-def seg():
+def segs():
     return make_segment()
+
+
+@pytest.fixture(scope="module")
+def seg(segs):
+    return segs[0]
 
 
 def _term_ids(seg):
@@ -62,15 +66,17 @@ def test_constants_equal_reference():
         assert getattr(port, n) == getattr(ref, n), n
 
 
-def test_host_helpers_equal_reference(seg):
+def test_host_helpers_equal_reference(segs):
+    seg, ref_seg = segs
     np.testing.assert_array_equal(port.pack_block_meta(seg),
-                                  ref.pack_block_meta(seg))
-    a, b = port.pad_planes(seg.planes), ref.pad_planes(seg.planes)
+                                  ref.pack_block_meta(ref_seg))
+    a, b = port.pad_planes(seg.planes), ref.pad_planes(ref_seg.planes)
     assert a.dtype == b.dtype
     np.testing.assert_array_equal(a, b)
     tids = _term_ids(seg)
+    assert tids == _term_ids(ref_seg)
     for got, want in zip(port.compute_cells(seg, tids),
-                         ref.compute_cells(seg, tids)):
+                         ref.compute_cells(ref_seg, tids)):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
 

@@ -2,9 +2,13 @@
 
 It ports ranked search on one segment (boolean AND / OR / NOT / k-of-n /
 OR-of-AND and exact phrases, BM25 / TF-IDF / Trivial top-k) to torch, with
-hand-written CUDA kernels for the H100 (``csrc/``). Host code — indexing,
-the query language, plan compilation, weights — is the JAX package's,
-imported as it is (it imports no JAX); the device side imports torch only.
+hand-written CUDA kernels for the H100 (``csrc/``). It stands alone: the
+host code — config, indexing and the segment format, the query language,
+plan compilation, weights — is the port's own copy of the JAX package's
+JAX-free modules, in the same layout (``config.py``, ``index/``,
+``query/``, ``plan/``, ``utils/bitpack.py``, ``utils/native.py``), and
+nothing here imports ``trinity_tpu`` or JAX. ``configure`` sets the port's
+own config.
 
 Quick start::
 
@@ -20,10 +24,10 @@ Quick start::
         print(hit.doc_id, hit.score)
 """
 
-from trinity_tpu.config import configure, get_config
-from trinity_tpu.index.builder import SegmentIndexSession
-from trinity_tpu.index.format import SegmentData
-from trinity_tpu.query.parser import parse_query
+from trinity_tpu_torch.config import configure, get_config
+from trinity_tpu_torch.index.builder import SegmentIndexSession
+from trinity_tpu_torch.index.format import SegmentData
+from trinity_tpu_torch.query.parser import parse_query
 from trinity_tpu_torch.exec.executor import (
     Executor,
     SearchResult,

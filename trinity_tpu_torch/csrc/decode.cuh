@@ -1,4 +1,5 @@
-// Block decode shared by the three kernels (postings.cu, fusedscore.cu).
+// Block decode shared by the kernels (postings.cu, fusedscore.cu,
+// posmask.cu).
 //
 // Postings layout (trinity_tpu/utils/bitpack.py): a 128-posting block's
 // values are bit planes stacked in a (rows, 128) u32 plane matrix, so the
@@ -105,6 +106,30 @@ __device__ __forceinline__ void decode_block_warp(
     off += f[i];
     o.valid[i] = (4 * lane + i < count) && local >= lo && local < hi;
   }
+}
+
+// Rows [first, second) of a cell's n postings blocks b0..b0+n-1 whose
+// [C_FIRST, C_LAST] docids meet [lo, hi). A term's blocks are sorted by
+// docid and disjoint, so the rows ending below lo and the rows starting
+// below hi are both prefixes: their lengths are the bounds. One load pair
+// per row, spread over the thread block; every thread must call it (the
+// counts are __syncthreads_count, so no shared scratch is reused).
+__device__ __forceinline__ int2 overlap_rows(const int* __restrict__ bmeta,
+                                             int b0, int n, uint32_t lo,
+                                             uint32_t hi) {
+  int below = 0, upto = 0;
+  for (int j0 = 0; j0 < n; j0 += blockDim.x) {
+    const int j = j0 + static_cast<int>(threadIdx.x);
+    uint32_t first = hi, last = lo;  // rows past n count in neither
+    if (j < n) {
+      const int* m = bmeta + static_cast<size_t>(b0 + j) * META_COLS;
+      first = static_cast<uint32_t>(__ldg(m + C_FIRST));
+      last = static_cast<uint32_t>(__ldg(m + C_LAST));
+    }
+    below += __syncthreads_count(last < lo);
+    upto += __syncthreads_count(first < hi);
+  }
+  return make_int2(below, upto);
 }
 
 // Per-doc similarity, f32, in the reference's operation order

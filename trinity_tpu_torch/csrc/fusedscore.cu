@@ -130,17 +130,107 @@ flat_score_kernel(const int* __restrict__ bmeta,
 
 // ------------------------------------------------------------------ tape
 // One block per (window, 2048-doc chunk, query). Each used slot's freqs
-// for the chunk are staged in shared memory (8 KiB a slot); blocks of a
-// cell whose [first, last] docids miss the chunk are skipped. Then every
-// doc runs the tape's postfix program on a small stack.
+// for the chunk are staged in shared memory (8 KiB a slot), all slots at
+// once: cached slots copy their hot-term planes while the block counts,
+// over every decoded slot's cell together, the postings blocks that meet
+// the chunk; then the warps decode those blocks. Then every thread
+// evaluates the tape's register program (ops/fusedscore.py encode_tape)
+// for 8 docs, D at a time: the op loop runs over the program once per D
+// docs, each op unrolled over the NR registers and the D docs, so the
+// registers stay in the register file (no stack in local memory). A
+// register is D f32 scores and one word of D match bytes (0/1, or a
+// k-of-n count).
 constexpr int TAPE_THREADS = 256;
 constexpr int NCHUNK = 8;
 constexpr int CHUNK = trin::WINDOW / NCHUNK;  // 2048 = 2 sub-blocks
-constexpr int MAX_STACK = 16;
+constexpr int DOCS_PER_THREAD = CHUNK / TAPE_THREADS;  // 8
 constexpr int MAX_PROG = 64;
 constexpr int MAX_USED = 8;
-enum { OP_TOK, OP_AND, OP_OR, OP_NOT, OP_UNOT, OP_OPT, OP_SOME, OP_FALSE };
+// register ops (op, dst, a, b); binary ops read dst and dst + 1
+enum {
+  OP_TOK,    // r = staged tile a scored with weight b
+  OP_AND,    // r = r AND r+1, scores summed
+  OP_OR,     // r = r OR r+1, scores summed
+  OP_NOT,    // r = r AND NOT r+1, r's score
+  OP_UNOT,   // r = NOT r, score 0
+  OP_OPT,    // r = true, r's score where r matched
+  OP_SACC,   // k-of-n: r's count += r+1's match, r's sum += r+1's score
+  OP_SFIN,   // k-of-n: r = (count >= a), the sum where it holds
+  OP_FALSE,  // r = false
+};
 
+// Stage the used slots' freqs for docs [c0, c0 + CHUNK) of window w into
+// tiles[U][CHUNK]; ends with the block synchronised.
+__device__ __forceinline__ void stage_slots(
+    const int* __restrict__ bmeta, const int* __restrict__ planes,
+    const int* __restrict__ cell_start, const int* __restrict__ cell_nblocks,
+    const int* __restrict__ cids, const int* __restrict__ used, int U,
+    const float* __restrict__ tf_planes, int W_tf, int w, int c0, int b,
+    int B, int T, float* tiles) {
+  __shared__ int scid[MAX_USED];  // hot plane of slot u, or -1: decoded
+  __shared__ int sb0[MAX_USED];   // decoded: the cell's first block
+  __shared__ int sn[MAX_USED];    // decoded: the cell's block count
+  __shared__ int sbelow[MAX_USED], supto[MAX_USED];  // overlap_rows' counts
+  const int tid = threadIdx.x;
+  const int wdoc = w * trin::WINDOW;
+  float4* tiles4 = reinterpret_cast<float4*>(tiles);
+  for (int i = tid; i < U * CHUNK / 4; i += blockDim.x)
+    tiles4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid < U) {
+    const int slot = b * T + used[tid];
+    const size_t cell = static_cast<size_t>(w) * B * T + slot;
+    const int cid = cids[slot];
+    scid[tid] = cid;
+    sb0[tid] = cell_start[cell];
+    sn[tid] = cid >= 0 ? 0 : cell_nblocks[cell];
+    sbelow[tid] = supto[tid] = 0;
+  }
+  __syncthreads();
+  for (int i = tid; i < U * CHUNK / 4; i += blockDim.x) {
+    const int u = i / (CHUNK / 4);
+    if (scid[u] >= 0)
+      tiles4[i] = __ldg(reinterpret_cast<const float4*>(
+                            tf_planes +
+                            (static_cast<size_t>(scid[u]) * W_tf + w) *
+                                trin::WINDOW +
+                            c0) +
+                        (i - u * (CHUNK / 4)));
+  }
+  // the rows of every decoded cell, flattened: row t is block t - base of
+  // the slot u whose rows start at base (see trin::overlap_rows)
+  const uint32_t lo = wdoc + c0, hi = wdoc + c0 + CHUNK;
+  for (int t = tid, u = 0, base = 0;; t += blockDim.x) {
+    while (u < U && t >= base + sn[u]) {
+      base += sn[u];
+      ++u;
+    }
+    if (u >= U) break;
+    const int* m = bmeta + static_cast<size_t>(sb0[u] + t - base) * trin::META_COLS;
+    if (static_cast<uint32_t>(__ldg(m + trin::C_LAST)) < lo) atomicAdd(sbelow + u, 1);
+    if (static_cast<uint32_t>(__ldg(m + trin::C_FIRST)) < hi) atomicAdd(supto + u, 1);
+  }
+  __syncthreads();
+  // the blocks that meet the chunk, flattened the same way, a warp each
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int t = warp, u = 0, base = 0;; t += nwarps) {
+    while (u < U && t >= base + supto[u] - sbelow[u]) {
+      base += supto[u] - sbelow[u];
+      ++u;
+    }
+    if (u >= U) break;
+    trin::Lanes4 o;
+    trin::decode_block_warp(bmeta, planes, sb0[u] + sbelow[u] + t - base, wdoc,
+                            c0, c0 + CHUNK, o);
+    float* tu = tiles + u * CHUNK;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (o.valid[i]) tu[o.local[i] - c0] = o.freq[i];
+  }
+  __syncthreads();
+}
+
+template <int NR, int D>
 __global__ void __launch_bounds__(TAPE_THREADS)
 tape_score_kernel(const int* __restrict__ bmeta,
                   const int* __restrict__ planes,
@@ -148,150 +238,140 @@ tape_score_kernel(const int* __restrict__ bmeta,
                   const int* __restrict__ cell_nblocks,
                   const float* __restrict__ weights, int NW,
                   const int* __restrict__ cids,
-                  const int* __restrict__ prog, int L,
+                  const int4* __restrict__ prog, int L,
                   const int* __restrict__ used, int U,
                   const float* __restrict__ tf_planes, int W_tf, int n_docs,
                   const float* __restrict__ deleted, int W, int B, int T,
                   int scorer, float* __restrict__ scores,
                   float* __restrict__ rmax) {
+  static_assert(D == 1 || D == 2 || D == 4, "a word holds D match bytes");
+  constexpr uint32_t ONES = D == 4 ? 0x01010101u : D == 2 ? 0x0101u : 0x01u;
   extern __shared__ float4 tiles4[];
   float* tiles = reinterpret_cast<float*>(tiles4);  // [U][CHUNK]
-  __shared__ int sprog[MAX_PROG * 3];
+  __shared__ int4 sprog[MAX_PROG];
   __shared__ float red[TAPE_THREADS / 32];
   const int w = blockIdx.x / NCHUNK;
   const int c0 = (blockIdx.x % NCHUNK) * CHUNK;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
   const int wdoc = w * trin::WINDOW;
 
-  for (int i = tid; i < 3 * L; i += blockDim.x) sprog[i] = prog[i];
-  for (int i = tid; i < U * CHUNK / 4; i += blockDim.x)
-    tiles4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncthreads();
-
-  for (int u = 0; u < U; ++u) {
-    const int slot = b * T + used[u];
-    float* tu = tiles + u * CHUNK;
-    const int cid = cids[slot];
-    if (cid >= 0) {
-      const float4* src = reinterpret_cast<const float4*>(
-          tf_planes + (static_cast<size_t>(cid) * W_tf + w) * trin::WINDOW +
-          c0);
-      for (int i = tid; i < CHUNK / 4; i += blockDim.x)
-        reinterpret_cast<float4*>(tu)[i] = __ldg(src + i);
-    } else {
-      const size_t cell = static_cast<size_t>(w) * B * T + slot;
-      const int b0 = cell_start[cell];
-      const int n = cell_nblocks[cell];
-      for (int j = warp; j < n; j += nwarps) {
-        const int* m = bmeta + static_cast<size_t>(b0 + j) * trin::META_COLS;
-        const int first = __ldg(m + trin::C_FIRST) - wdoc;
-        const int last = __ldg(m + trin::C_LAST) - wdoc;
-        if (last < c0 || first >= c0 + CHUNK) continue;  // warp-uniform
-        trin::Lanes4 o;
-        trin::decode_block_warp(bmeta, planes, b0 + j, wdoc, c0, c0 + CHUNK,
-                                o);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (o.valid[i]) tu[o.local[i] - c0] = o.freq[i];
-      }
-    }
-  }
-  __syncthreads();
+  for (int i = tid; i < L; i += blockDim.x) sprog[i] = prog[i];
+  stage_slots(bmeta, planes, cell_start, cell_nblocks, cids, used, U,
+              tf_planes, W_tf, w, c0, b, B, T, tiles);
+  const float* wrow = weights + static_cast<size_t>(b) * NW;
 
   const int half = tid / trin::TILE;  // sub-block within the chunk
   const int l = tid % trin::TILE;
   const int nd_local = n_docs - wdoc;
-  const float* wrow = weights + static_cast<size_t>(b) * NW;
-  float* out = scores + (static_cast<size_t>(b) * W + w) * trin::WINDOW;
+  const float* del =
+      deleted ? deleted + static_cast<size_t>(w) * trin::WINDOW + c0 : nullptr;
+  float* out = scores + (static_cast<size_t>(b) * W + w) * trin::WINDOW + c0;
   float mx = -INFINITY;
-  for (int r = 0; r < SUB_DOCS / trin::TILE; ++r) {
-    const int d = half * SUB_DOCS + r * trin::TILE + l;  // within the chunk
-    bool ms[MAX_STACK];
-    float ss[MAX_STACK];
-    int sp = 0;
+  for (int p = 0; p < DOCS_PER_THREAD / D; ++p) {
+    uint32_t mc[NR];  // byte i: doc i's match (0/1) or k-of-n count
+    float s[NR][D];
+    int d[D];  // docs within the chunk
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+      d[i] = half * SUB_DOCS + (p * D + i) * trin::TILE + l;
     for (int pc = 0; pc < L; ++pc) {
-      const int op = sprog[3 * pc], a = sprog[3 * pc + 1],
-                arg = sprog[3 * pc + 2];
-      switch (op) {
-        case OP_TOK: {
-          const float f = tiles[a * CHUNK + d];
-          const bool mm = f > 0.f;
-          ms[sp] = mm;
-          ss[sp] = mm ? trin::score_tile(scorer, f, __ldg(wrow + arg)) : 0.f;
-          ++sp;
-          break;
-        }
-        case OP_AND:
-        case OP_OR:
-        case OP_NOT: {
-          --sp;
-          const bool lm = ms[sp - 1], rm = ms[sp];
-          const float ls = ss[sp - 1], rs = ss[sp];
-          bool mm;
-          float s;
-          if (op == OP_AND) {
-            mm = lm && rm;
-            s = __fadd_rn(ls, rs);
-          } else if (op == OP_OR) {
-            mm = lm || rm;
-            s = __fadd_rn(ls, rs);
-          } else {
-            mm = lm && !rm;
-            s = ls;
+      const int4 op = sprog[pc];
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        if (op.y != r) continue;  // uniform: every thread runs one program
+        const int r1 = r + 1 < NR ? r + 1 : r;  // binary ops have r < NR-1
+        switch (op.x) {
+          case OP_TOK: {
+            const float* tu = tiles + op.z * CHUNK;
+            const float wt = __ldg(wrow + op.w);
+            mc[r] = 0u;
+#pragma unroll
+            for (int i = 0; i < D; ++i) {
+              const float f = tu[d[i]];
+              mc[r] |= static_cast<uint32_t>(f > 0.f) << (8 * i);
+              s[r][i] = f > 0.f ? trin::score_tile(scorer, f, wt) : 0.f;
+            }
+            break;
           }
-          ms[sp - 1] = mm;
-          ss[sp - 1] = mm ? s : 0.f;
-          break;
+          case OP_AND:
+          case OP_OR:
+            mc[r] = op.x == OP_AND ? mc[r] & mc[r1] : mc[r] | mc[r1];
+#pragma unroll
+            for (int i = 0; i < D; ++i)
+              s[r][i] = ((mc[r] >> (8 * i)) & 1u) ? __fadd_rn(s[r][i], s[r1][i]) : 0.f;
+            break;
+          case OP_NOT:
+            mc[r] &= ~mc[r1];
+#pragma unroll
+            for (int i = 0; i < D; ++i) s[r][i] = ((mc[r] >> (8 * i)) & 1u) ? s[r][i] : 0.f;
+            break;
+          case OP_UNOT:
+            mc[r] ^= ONES;
+#pragma unroll
+            for (int i = 0; i < D; ++i) s[r][i] = 0.f;
+            break;
+          case OP_OPT:
+#pragma unroll
+            for (int i = 0; i < D; ++i) s[r][i] = ((mc[r] >> (8 * i)) & 1u) ? s[r][i] : 0.f;
+            mc[r] = ONES;
+            break;
+          case OP_SACC:
+            mc[r] += mc[r1];  // bytewise: a count stays below 256
+#pragma unroll
+            for (int i = 0; i < D; ++i) s[r][i] = __fadd_rn(s[r][i], s[r1][i]);
+            break;
+          case OP_SFIN:
+            mc[r] = __vcmpgeu4(mc[r], static_cast<uint32_t>(op.z) * 0x01010101u) & ONES;
+#pragma unroll
+            for (int i = 0; i < D; ++i) s[r][i] = ((mc[r] >> (8 * i)) & 1u) ? s[r][i] : 0.f;
+            break;
+          default:  // OP_FALSE
+            mc[r] = 0u;
+#pragma unroll
+            for (int i = 0; i < D; ++i) s[r][i] = 0.f;
+            break;
         }
-        case OP_UNOT:
-          ms[sp - 1] = !ms[sp - 1];
-          ss[sp - 1] = 0.f;
-          break;
-        case OP_OPT:
-          ss[sp - 1] = ms[sp - 1] ? ss[sp - 1] : 0.f;
-          ms[sp - 1] = true;
-          break;
-        case OP_SOME: {
-          const int base = sp - arg;
-          int cnt = 0;
-          float tot = ss[base];
-          for (int i = 0; i < arg; ++i) {
-            cnt += ms[base + i];
-            if (i) tot = __fadd_rn(tot, ss[base + i]);
-          }
-          const bool mm = cnt >= a;
-          ms[base] = mm;
-          ss[base] = mm ? tot : 0.f;
-          sp = base + 1;
-          break;
-        }
-        default:  // OP_FALSE
-          ms[sp] = false;
-          ss[sp] = 0.f;
-          ++sp;
-          break;
       }
     }
-    const int dw = c0 + d;  // within the window
-    const bool in_seg =
-        dw < nd_local &&
-        (deleted == nullptr ||
-         deleted[static_cast<size_t>(w) * trin::WINDOW + dw] == 0.f);
-    const float sc = (ms[0] && in_seg) ? ss[0] : -INFINITY;
-    out[dw] = sc;
-    mx = fmaxf(mx, sc);
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      const bool in_seg =
+          c0 + d[i] < nd_local && (del == nullptr || del[d[i]] == 0.f);
+      const float sc = (((mc[0] >> (8 * i)) & 1u) && in_seg) ? s[0][i] : -INFINITY;
+      out[d[i]] = sc;
+      mx = fmaxf(mx, sc);
+    }
   }
   mx = warp_max(mx);
   if ((tid & 31) == 0) red[warp] = mx;
   __syncthreads();
   const int wpb = trin::TILE / 32;  // warps per sub-block
-  float m = red[half * wpb];
-  for (int i = 1; i < wpb; ++i) m = fmaxf(m, red[half * wpb + i]);
+  float mxs = red[half * wpb];
+  for (int i = 1; i < wpb; ++i) mxs = fmaxf(mxs, red[half * wpb + i]);
   const int sub = c0 / SUB_DOCS + half;
-  rmax[((static_cast<size_t>(b) * W + w) * NSUB + sub) * trin::TILE + l] = m;
+  rmax[((static_cast<size_t>(b) * W + w) * NSUB + sub) * trin::TILE + l] = mxs;
+}
+
+template <int NR, int D>
+int launch_tape(const int* bmeta, const int* planes, const int* cell_start,
+                const int* cell_nblocks, const float* weights, int NW,
+                const int* cids, const int* prog, int L, const int* used,
+                int U, const float* tf_planes, int W_tf, int n_docs,
+                const float* deleted, int W, int B, int T, int scorer,
+                float* scores, float* rmax, cudaStream_t stream) {
+  static_assert(NR * D == 16 && DOCS_PER_THREAD % D == 0, "register file");
+  cudaError_t e = cudaFuncSetAttribute(
+      tape_score_kernel<NR, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MAX_USED * CHUNK * static_cast<int>(sizeof(float)));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int smem = U * CHUNK * static_cast<int>(sizeof(float));
+  tape_score_kernel<NR, D><<<dim3(W * NCHUNK, B), TAPE_THREADS, smem, stream>>>(
+      bmeta, planes, cell_start, cell_nblocks, weights, NW, cids,
+      reinterpret_cast<const int4*>(prog), L, used, U, tf_planes, W_tf,
+      n_docs, deleted, W, B, T, scorer, scores, rmax);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -314,24 +394,21 @@ extern "C" int trin_flat_score(const int* bmeta, const int* planes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// prog: (L, 4) i32 register program using nreg registers (at most 16);
+// used: the U term slots it reads, in the order of its staged tiles.
 extern "C" int trin_tape_score(const int* bmeta, const int* planes,
                                const int* cell_start, const int* cell_nblocks,
                                const float* weights, int NW, const int* cids,
-                               const int* prog, int L, const int* used, int U,
-                               const float* tf_planes, int W_tf, int n_docs,
-                               const float* deleted, int W, int B, int T,
-                               int scorer, float* scores, float* rmax,
-                               cudaStream_t stream) {
-  if (U < 1 || U > MAX_USED || L < 1 || L > MAX_PROG)
+                               const int* prog, int L, int nreg,
+                               const int* used, int U, const float* tf_planes,
+                               int W_tf, int n_docs, const float* deleted,
+                               int W, int B, int T, int scorer, float* scores,
+                               float* rmax, cudaStream_t stream) {
+  if (U < 1 || U > MAX_USED || L < 1 || L > MAX_PROG || nreg < 1 || nreg > 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = U * CHUNK * static_cast<int>(sizeof(float));
-  cudaError_t e = cudaFuncSetAttribute(
-      tape_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MAX_USED * CHUNK * static_cast<int>(sizeof(float)));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  tape_score_kernel<<<dim3(W * NCHUNK, B), TAPE_THREADS, smem, stream>>>(
-      bmeta, planes, cell_start, cell_nblocks, weights, NW, cids, prog, L,
-      used, U, tf_planes, W_tf, n_docs, deleted, W, B, T, scorer, scores,
-      rmax);
-  return static_cast<int>(cudaGetLastError());
+  auto run = nreg <= 4 ? launch_tape<4, 4>
+                       : nreg <= 8 ? launch_tape<8, 2> : launch_tape<16, 1>;
+  return run(bmeta, planes, cell_start, cell_nblocks, weights, NW, cids, prog,
+             L, used, U, tf_planes, W_tf, n_docs, deleted, W, B, T, scorer,
+             scores, rmax, stream);
 }

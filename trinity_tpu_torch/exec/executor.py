@@ -2,10 +2,10 @@
 
 Counterpart of ``trinity_tpu/exec/executor.py`` for ``search`` /
 ``search_batch`` / ``launch_batch`` / ``finish_batch``. Host planning is
-the reference's, imported as it is (``_plan_for_text``, ``_flatten_tape``,
-``_pad_T``, ``_pick_bucket``, the phrase C/C2 buckets,
-``config.batch_buckets``); the device side is torch plus the four CUDA
-kernels. Groups of one plan shape share a launch:
+the reference's, in the port's own copies (``exec/planning.py``:
+``_plan_for_text``, ``_flatten_tape``, ``_pad_T``, ``_pick_bucket``, the
+phrase C/C2 buckets; ``config.batch_buckets``); the device side is torch
+plus the four CUDA kernels. Groups of one plan shape share a launch:
 
   - "flat" (AND/OR/NOT/k-of-n/optional, at most 8 slots): the flat fused
     score kernel, structure as data (ops/fusedscore.py);
@@ -47,8 +47,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from trinity_tpu.config import get_config
-from trinity_tpu.exec.executor import (
+from trinity_tpu_torch.config import get_config
+from trinity_tpu_torch.exec.planning import (
     SearchResult,
     _flatten_tape,
     _pad_T,
@@ -59,18 +59,15 @@ from trinity_tpu.exec.executor import (
     _pick_c2,
     _plan_for_text,
 )
-from trinity_tpu.index.format import SegmentData
-from trinity_tpu.limits import TILE, WINDOW_SIZE
-from trinity_tpu.models.similarity import SIMILARITIES
-from trinity_tpu.plan.compile import compile_plan
-from trinity_tpu.query.parser import Query
 from trinity_tpu_torch.exec.phrases import (
     collect_phrases,
     fcap_bucket,
     verify_phrase_candidates,
     verify_phrases_device,
 )
-from trinity_tpu_torch.models.similarity import score_tile
+from trinity_tpu_torch.index.format import SegmentData
+from trinity_tpu_torch.limits import TILE, WINDOW_SIZE
+from trinity_tpu_torch.models.similarity import SIMILARITIES, score_tile
 from trinity_tpu_torch.ops.fusedscore import (
     NEG_INF,
     NSUB,
@@ -98,6 +95,8 @@ from trinity_tpu_torch.ops.select import (
     compact_mask,
     gather_cols,
 )
+from trinity_tpu_torch.plan.compile import compile_plan
+from trinity_tpu_torch.query.parser import Query
 
 # tapes reading more slots run the dense path (decode + torch tape eval)
 FUSED_MAX_SLOTS = 8
@@ -164,7 +163,8 @@ class Group:
 
 
 class Executor:
-    """Per-segment search session on one device (``"cuda"`` or ``"cpu"``).
+    """Per-segment search session on one device: ``"cuda"`` (the default;
+    raises when torch sees no card) or ``"cpu"`` (the plain versions).
 
     The segment's block metadata, padded plane matrix and positions stream
     are uploaded once. Two query-independent caches are built at the first
@@ -173,7 +173,7 @@ class Executor:
     ``config.hot_cache_bytes``) and the posmask hot cache (highest-df terms
     with df >= ``posmask_min_df`` within ``posmask_cache_bytes``)."""
 
-    def __init__(self, seg: SegmentData, device):
+    def __init__(self, seg: SegmentData, device="cuda"):
         self.device = _resolve_device(device)
         self.seg = seg
         hp = np.ascontiguousarray(seg.hit_planes, dtype=np.uint32)
@@ -279,12 +279,13 @@ class Executor:
                           device=self.device)
         for i in range(0, len(order), HOT_CHUNK):
             tids = order[i : i + HOT_CHUNK]
-            cs, cn = compute_cells(seg, tids + [-1] * (HOT_CHUNK - len(tids)))
-            masks = materialize_posmask_tiles(
+            cs, cn = compute_cells(seg, tids)
+            # the kernel writes the chunk's words into the cache in place
+            materialize_posmask_tiles(
                 self.bmeta, self.planes, self.hit_pw, self.hit_off,
                 self._put(cs), self._put(cn), PW,
-            )  # (W, HOT_CHUNK, PW, 128, 128)
-            out[:, i : i + len(tids)] = masks[:, : len(tids)]
+                out=out[:, i : i + len(tids)],
+            )
         return out
 
     def _cids_for(self, tids, T: int) -> np.ndarray:

@@ -23,30 +23,123 @@ with ``lax.cond``); and the window loops run as far as the longest run
 in the chunk needs (one more sync), as the reference's data-dependent
 trip count does.
 
-``collect_phrases``, ``fcap_bucket``, ``FCAP_LADDER`` and the host verifier
-``verify_phrase_candidates`` are the reference's, imported as they are
-(that module imports no JAX).
+The host half — ``FCAP_LADDER`` and its helpers, ``collect_phrases``,
+``fcap_bucket`` and the numpy verifier ``verify_phrase_candidates`` — is
+the port's own copy of the reference's, unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
+import numpy as np
 import torch
 
-from trinity_tpu.exec.phrases import (  # noqa: F401  (re-exported)
-    FCAP_LADDER,
-    SINGLE_WINDOW_FCAP,
-    TILE_LANES,
-    WINDOW_GROUPS,
-    _lanes_used,
-    _win_lanes,
-    _window_count,
-    collect_phrases,
-    fcap_bucket,
-    verify_phrase_candidates,
-)
+# ------------------------------------------------------------ host half
+# Copied from trinity_tpu/exec/phrases.py.
+# Per-member position-count cap ladder for the DEVICE verification path:
+# gathers are padded to a bucket so plan shapes share compiled programs.
+# Rungs <= 512 decode the whole run in one window (the hot shape); larger
+# rungs stream the run through 512-lane windows inside a lax.fori_loop with
+# a data-dependent trip count, so stopword-grade members (per-doc freq up to
+# the 2^16 builder cap) stay ON DEVICE — the reference materializes hits for
+# any freq (lucene_codec.cpp:767-856), and since round 3 so does this path.
+FCAP_LADDER = (8, 64, 512, 4096, 65536)
+SINGLE_WINDOW_FCAP = 512  # largest rung decoded without the window loop
+WINDOW_GROUPS = 4  # groups per window-loop step (512 lanes)
+TILE_LANES = 128  # positions-stream group width (plane matrix lane count)
 
+
+def _lanes_used(fcap: int) -> int:
+    """Trimmed decode width for a single-window member run."""
+    return -(-(TILE_LANES - 1 + fcap) // 8) * 8
+
+
+def _win_lanes(fcap: int) -> int:
+    """Live lane width of one decode step (memory-budget accounting)."""
+    if fcap <= SINGLE_WINDOW_FCAP:
+        return _lanes_used(fcap)
+    return WINDOW_GROUPS * TILE_LANES
+
+
+def collect_phrases(tape) -> List[Tuple[tuple, int]]:
+    """All ("phrase", slots, widx) nodes in traversal order -> [(slots, widx)]."""
+    out: List[Tuple[tuple, int]] = []
+
+    def walk(n):
+        kind = n[0]
+        if kind == "phrase":
+            out.append((n[1], n[2]))
+        elif kind in ("and", "or", "not"):
+            walk(n[1])
+            walk(n[2])
+        elif kind in ("unot", "opt"):
+            walk(n[1])
+        elif kind == "some":
+            for c in n[2]:
+                walk(c)
+
+    walk(tape)
+    return out
+
+
+def fcap_bucket(max_freq: int) -> int | None:
+    """Smallest ladder rung >= max_freq, or None (host fallback)."""
+    for b in FCAP_LADDER:
+        if max_freq <= b:
+            return b
+    return None
+
+
+def _window_count(fcap: int) -> int:
+    """Static window-loop trip count covering a full fcap-sized run."""
+    ng = (fcap + 126) // 128 + 1
+    return -(-ng // WINDOW_GROUPS)
+
+
+def verify_phrase_candidates(
+    positions: np.ndarray,  # u16 positions stream of the segment
+    valid: np.ndarray,  # (N,) bool — live candidates
+    freqs: np.ndarray,  # (N, K) i32 member freqs
+    offs: np.ndarray,  # (N, K) i32 member hits offsets
+    chunk: int = 8192,
+) -> np.ndarray:
+    """Exact phrase frequency per candidate -> (N,) i32.
+
+    A phrase occurs at position p iff member k's positions contain p + k for
+    every k (docwordspace.cpp:3-15 test_phrase semantics). Vectorized: pad
+    each member's position runs to its max freq, compare all (start, hit)
+    pairs, chunked over candidates to bound memory.
+    """
+    n, k = freqs.shape
+    out = np.zeros(n, np.int32)
+    if not valid.any():
+        return out
+    idx = np.flatnonzero(valid)
+    for c0 in range(0, len(idx), chunk):
+        sel = idx[c0 : c0 + chunk]
+        f = freqs[sel]
+        o = offs[sel]
+        fmax = [int(f[:, m].max(initial=1)) for m in range(k)]
+        # padded position matrices per member; padding sentinel never matches
+        pos = []
+        for m in range(k):
+            j = np.arange(fmax[m])
+            gather = o[:, m, None] + np.minimum(j[None, :], f[:, m, None] - 1)
+            pm = positions[gather].astype(np.int64)
+            pm[j[None, :] >= f[:, m, None]] = -(10**6) * (m + 1)
+            pos.append(pm)
+        start = pos[0]  # (C, F0)
+        ok = np.ones(start.shape, bool)
+        for m in range(1, k):
+            target = start + m  # (C, F0)
+            hit = (pos[m][:, None, :] == target[:, :, None]).any(axis=2)
+            ok &= hit
+        out[sel] = ok.sum(axis=1)
+    return out
+
+
+# ---------------------------------------------------------- device half
 _U32 = 0xFFFFFFFF
 _WL = WINDOW_GROUPS * TILE_LANES  # lanes per window step
 

@@ -1,10 +1,14 @@
-"""Device half of ``trinity_tpu/models/similarity.py`` on torch tensors.
+"""Similarity models: BM25, TF-IDF, Trivial — the port's own.
 
-The per-term weights stay the reference's f64 host functions
-(``SIMILARITIES[name].weight``), imported as they are. What changes is the
-elementwise tf: the reference's ``score_tile`` sends any non-numpy input to
-``jax.numpy.sqrt``, so the port keeps its own, with the same f32 operation
-order — the parity contract with ``trinity_tpu/oracle.py``:
+The host half (``Similarity``, ``BM25``, ``TFIDF``, ``Trivial``,
+``SIMILARITIES``: per-term f64 weights and the f32 scalar scorers the
+numpy host routes use) is a copy of ``trinity_tpu/models/similarity.py``
+lines 23-105, whose ``_sqrt`` sent any non-numpy input to
+``jax.numpy.sqrt``; here a torch tensor goes to ``ieee_sqrt``.
+
+The device half is ``score_tile(scorer_name, freq, weight)`` on torch
+tensors, with the same f32 operation order — the parity contract with
+``trinity_tpu/oracle.py``:
 
   bm25     (w * f) / (f + K1)
   tfidf    sqrt(f) * w
@@ -16,9 +20,94 @@ order — the parity contract with ``trinity_tpu/oracle.py``:
 
 from __future__ import annotations
 
+import math
+from typing import Sequence
+
+import numpy as np
 import torch
 
-from trinity_tpu.models.similarity import BM25, SIMILARITIES
+
+class Similarity:
+    """Base: subclass and register in SIMILARITIES (the analog of
+    subclassing IndexSourcesCollectionTermsScorer, similarity.h:43-53)."""
+
+    name: str = "?"
+
+    @staticmethod
+    def weight(dfs: Sequence[int], docs_cnt: int) -> float:
+        """Per-(term|phrase) weight from member-term document frequencies,
+        aggregated across the collection (similarity.h:209-217). f64."""
+        raise NotImplementedError
+
+    @staticmethod
+    def score_tile(freq, weight):
+        """Device: f32 score from f32 freq tile and f32 weight (broadcast)."""
+        raise NotImplementedError
+
+    @classmethod
+    def host_score(cls, freq: int, weight: float) -> np.float32:
+        """Oracle path: identical f32 op order on scalars."""
+        return cls.score_tile(np.float32(freq), np.float32(weight))
+
+
+class BM25(Similarity):
+    """similarity.h:165-255: idf = ln(1 + (N - df + .5)/(df + .5)) summed
+    over member terms; score = idf * freq / (freq + k1); k1 = 1.2 and the
+    norm is fixed at k1 (`const auto norm{k1}`, similarity.h:230 — no
+    document-length normalization)."""
+
+    name = "bm25"
+    K1 = np.float32(1.2)
+
+    @staticmethod
+    def weight(dfs, docs_cnt):
+        return sum(
+            math.log(1.0 + (docs_cnt - df + 0.5) / (df + 0.5)) for df in dfs
+        )
+
+    @staticmethod
+    def score_tile(freq, weight):
+        return (weight * freq) / (freq + BM25.K1)
+
+
+class TFIDF(Similarity):
+    """similarity.h:75-163: idf = ln((N+1)/(df+1)) + 1 summed over member
+    terms; score = sqrt(freq) * idf."""
+
+    name = "tfidf"
+
+    @staticmethod
+    def weight(dfs, docs_cnt):
+        return sum(math.log((docs_cnt + 1) / float(df + 1)) + 1.0 for df in dfs)
+
+    @staticmethod
+    def score_tile(freq, weight):
+        return _sqrt(freq) * weight
+
+
+class Trivial(Similarity):
+    """similarity.h:56-72: score = freq."""
+
+    name = "trivial"
+
+    @staticmethod
+    def weight(dfs, docs_cnt):
+        return 0.0
+
+    @staticmethod
+    def score_tile(freq, weight):
+        return freq
+
+
+def _sqrt(x):
+    """f32 sqrt for host scalars and arrays (np.sqrt) and torch tensors
+    (ieee_sqrt): both IEEE-rounded, so oracle and engine agree exactly."""
+    if isinstance(x, torch.Tensor):
+        return ieee_sqrt(x)
+    return np.sqrt(x)
+
+
+SIMILARITIES = {c.name: c for c in (BM25, TFIDF, Trivial)}
 
 SCORER_CODE = {"bm25": 0, "tfidf": 1, "trivial": 2}
 
@@ -61,4 +150,5 @@ def score_tile(scorer_name: str, freq: torch.Tensor, weight) -> torch.Tensor:
     return _SCORE_TILE[scorer_name](freq, weight)
 
 
-__all__ = ["SIMILARITIES", "SCORER_CODE", "score_tile"]
+__all__ = ["BM25", "SCORER_CODE", "SIMILARITIES", "Similarity", "TFIDF",
+           "Trivial", "ieee_sqrt", "score_tile"]

@@ -31,10 +31,18 @@ decode of each slot's blocks (or a 64 KiB plane read for a cached slot).
 eval ``eval_tape_tiles``). Non-flat trees (OR-of-AND, slot reuse) with at
 most 8 used slots need every slot of a doc at once, so a block owns a
 2048-doc eighth of a window and stages each used slot's freqs for that
-range in shared memory (8 KiB a slot); blocks of a cell outside the range
-are skipped by their first/last docid. The tape is encoded as a postfix
-program (``encode_tape``) passed as data, so one compiled kernel serves
-every tape. Bound: the score tile writes and the per-doc postfix loop.
+range in shared memory (8 KiB a slot); a block-wide count over the cells'
+first/last docids finds the blocks that meet the range, and only those
+are decoded. The tape arrives as a register program (``encode_tape``):
+the stack depth at each point of a postfix walk does not depend on the
+data, so each stack slot becomes a numbered register and each op names
+the register it writes (binary ops read it and the next one). The kernel runs the program once per 4, 2 or 1
+docs (for 4, 8 or 16 registers) with the ops unrolled over the registers
+and docs, so the registers stay in the register file; a postfix stack
+indexed at run time would live in local memory. Each doc's f32 sum is
+taken in the tape's association order (0 ulp against the plain version).
+Bound: the score tile writes and the staged tiles (cached planes, decoded
+blocks); ``score_bytes`` counts them.
 
 On CPU tensors the wrappers run the plain torch versions
 (``fused_flat_score_tiles_ref`` / ``fused_score_tiles_ref``); on CUDA
@@ -48,18 +56,25 @@ import functools
 import numpy as np
 import torch
 
-from trinity_tpu.limits import TILE, WINDOW_SIZE
+from trinity_tpu_torch.limits import TILE, WINDOW_SIZE
 from trinity_tpu_torch.models.similarity import SCORER_CODE, score_tile
-from trinity_tpu_torch.ops.postings import _check, materialize_freq_tiles_ref
+from trinity_tpu_torch.ops.postings import (
+    _check,
+    block_bytes,
+    decode_cells,
+    materialize_freq_tiles_ref,
+)
 
 NEG_INF = float("-inf")
 NSUB = 16  # sub-blocks per window (8 tile rows = 1024 contiguous docids)
 SUB_DOCS = WINDOW_SIZE // NSUB
-MAX_STACK = 16  # postfix evaluation stack of the tape kernel
-MAX_PROG = 64  # postfix program length the tape kernel takes
+MAX_REGS = 16  # registers of the tape kernel's program
+MAX_PROG = 64  # program length the tape kernel takes
 
-# postfix opcodes (csrc/fusedscore.cu)
-OP_TOK, OP_AND, OP_OR, OP_NOT, OP_UNOT, OP_OPT, OP_SOME, OP_FALSE = range(8)
+# register-program opcodes (csrc/fusedscore.cu); rows are (op, dst, a, b)
+(OP_TOK, OP_AND, OP_OR, OP_NOT, OP_UNOT, OP_OPT, OP_SACC, OP_SFIN,
+ OP_FALSE) = range(9)
+_BINARY = {"and": OP_AND, "or": OP_OR, "not": OP_NOT}
 
 
 def tape_used_slots(tape) -> tuple:
@@ -86,51 +101,88 @@ def tape_used_slots(tape) -> tuple:
     return tuple(sorted(out))
 
 
-def encode_tape(tape, used) -> np.ndarray:
-    """Boolean tape -> postfix program, (L, 3) i32 rows (op, a, b).
+def encode_tape(tape, used):
+    """Boolean tape -> (register program (L, 4) i32, register count).
 
-    TOK a = index of the slot in `used` (the staged tile), b = weight
-    index; SOME a = kmin, b = number of children (popped in order); the
-    binary ops pop (rhs, lhs). Raises ValueError past the kernel's stack
-    depth or program length."""
+    Rows are (op, dst, a, b). A node is evaluated into register r with the
+    registers above r free, so a binary node puts its left child in r, its
+    right child in r + 1 and combines them into r: the registers are the
+    slots of the postfix stack, numbered where the program is built. TOK
+    a = index of the slot in `used` (its staged tile), b = weight index;
+    a k-of-n node folds each child after the first into r as soon as it is
+    evaluated (SACC: count and f32 sum, in child order, as the reference
+    sums them) and ends with SFIN a = kmin. Raises ValueError past the
+    kernel's registers or program length."""
     pos = {s: i for i, s in enumerate(used)}
     prog = []
-    depth = [0, 0]  # current, max
 
-    def push():
-        depth[0] += 1
-        depth[1] = max(depth[1], depth[0])
-
-    def emit(n):
+    def emit(n, r):
+        """Evaluate n into register r; returns the registers used."""
         kind = n[0]
         if kind == "tok":
-            prog.append((OP_TOK, pos[n[1]], n[2]))
-            push()
-        elif kind in ("and", "or", "not"):
-            emit(n[1])
-            emit(n[2])
-            prog.append(({"and": OP_AND, "or": OP_OR, "not": OP_NOT}[kind],
-                         0, 0))
-            depth[0] -= 1
-        elif kind in ("unot", "opt"):
-            emit(n[1])
-            prog.append((OP_UNOT if kind == "unot" else OP_OPT, 0, 0))
-        elif kind == "some":
+            prog.append((OP_TOK, r, pos[n[1]], n[2]))
+            return r + 1
+        if kind == "false":
+            prog.append((OP_FALSE, r, 0, 0))
+            return r + 1
+        if kind in _BINARY:
+            need = max(emit(n[1], r), emit(n[2], r + 1))
+            prog.append((_BINARY[kind], r, 0, 0))
+            return need
+        if kind in ("unot", "opt"):
+            need = emit(n[1], r)
+            prog.append((OP_UNOT if kind == "unot" else OP_OPT, r, 0, 0))
+            return need
+        if kind == "some":
             _, kmin, children = n
-            for c in children:
-                emit(c)
-            prog.append((OP_SOME, kmin, len(children)))
-            depth[0] -= len(children) - 1
-        elif kind == "false":
-            prog.append((OP_FALSE, 0, 0))
-            push()
-        else:
-            raise ValueError(f"tape node {kind!r} has no postfix form")
+            need = emit(children[0], r)
+            for c in children[1:]:
+                need = max(need, emit(c, r + 1))
+                prog.append((OP_SACC, r, 0, 0))
+            prog.append((OP_SFIN, r, kmin, 0))
+            return need
+        raise ValueError(f"tape node {kind!r} has no register form")
 
-    emit(tape)
-    if depth[1] > MAX_STACK or len(prog) > MAX_PROG:
+    nreg = emit(tape, 0)
+    if nreg > MAX_REGS or len(prog) > MAX_PROG:
         raise ValueError("tape too deep or too long for the tape kernel")
-    return np.asarray(prog, np.int32).reshape(-1, 3)
+    return np.asarray(prog, np.int32).reshape(-1, 4), nreg
+
+
+def eval_program(prog, tiles, wsel, scorer_name):
+    """The tape kernel's interpreter in torch: runs a register program
+    (``encode_tape``) over whole tiles. tiles: staged-tile index -> f32
+    freq tensor; wsel: weight index -> f32 weight (broadcastable). Returns
+    (mask bool, score f32) of register 0, as eval_tape_tiles does for the
+    tape."""
+    m, s = {}, {}
+    for op, r, a, b in np.asarray(prog).tolist():
+        if op == OP_TOK:
+            f = tiles[a]
+            m[r] = f > 0
+            s[r] = torch.where(m[r], score_tile(scorer_name, f, wsel(b)), 0.0)
+        elif op in (OP_AND, OP_OR, OP_NOT):
+            if op == OP_NOT:
+                mm, ss = m[r] & ~m[r + 1], s[r]
+            else:
+                mm = m[r] & m[r + 1] if op == OP_AND else m[r] | m[r + 1]
+                ss = s[r] + s[r + 1]
+            m[r], s[r] = mm, torch.where(mm, ss, 0.0)
+        elif op == OP_UNOT:
+            m[r], s[r] = ~m[r], torch.zeros_like(s[r])
+        elif op == OP_OPT:
+            s[r] = torch.where(m[r], s[r], 0.0)
+            m[r] = torch.ones_like(m[r])
+        elif op == OP_SACC:
+            m[r] = m[r].to(torch.int32) + m[r + 1].to(torch.int32)
+            s[r] = s[r] + s[r + 1]
+        elif op == OP_SFIN:
+            mm = m[r].to(torch.int32) >= a
+            m[r], s[r] = mm, torch.where(mm, s[r], 0.0)
+        else:
+            z = torch.zeros_like(next(iter(tiles.values())))
+            m[r], s[r] = z > 0, z
+    return m[0], s[0]
 
 
 # ------------------------------------------------------ plain torch versions
@@ -354,8 +406,9 @@ def fused_flat_score_tiles(
 @functools.lru_cache(maxsize=256)
 def _program(tape, device):
     used = tape_used_slots(tape)
-    prog = torch.from_numpy(encode_tape(tape, used).reshape(-1)).to(device)
-    return prog, torch.tensor(used, dtype=torch.int32, device=device)
+    prog, nreg = encode_tape(tape, used)
+    return (torch.from_numpy(prog.reshape(-1)).to(device), nreg,
+            torch.tensor(used, dtype=torch.int32, device=device))
 
 
 def fused_score_tiles(
@@ -386,19 +439,48 @@ def fused_score_tiles(
     dev, W = _check_common(bmeta, planes, cell_start, cell_nblocks, cids,
                            tf_planes, deleted, B, T)
     _check(weights, "weights", torch.float32, dev)
-    prog, used = _program(tape, dev)
-    if not 1 <= len(used) <= 8:
+    prog, nreg, used = _program(tape, dev)
+    U = len(used)
+    if not 1 <= U <= 8:
         raise ValueError("the tape kernel takes 1..8 used slots")
     scores, rmax = _outputs(B, W, dev)
     if B * W:
         kernels.launch(
             "tape", "trin_tape_score",
             bmeta, planes, cell_start, cell_nblocks, weights, NW, cids,
-            prog, len(prog) // 3, used, len(used), tf_planes,
+            prog, len(prog) // 4, nreg, used, U, tf_planes,
             tf_planes.shape[1], int(n_docs), deleted, W, B, T,
             SCORER_CODE[scorer_name], scores, rmax,
         )
     return scores, rmax
+
+
+# ------------------------------------------------------------ byte counts
+def score_bytes(bmeta, planes, cell_start, cell_nblocks, cids, B, deleted,
+                n_weights):
+    """(bytes, f32 operations) one fused score call (flat or tape) must
+    move and do: the scores and sub-block maxima written once
+    (B * W * (16384 + 2048) f32), the cell tables, cids and per-query
+    inputs (weights, and for flat calls flags and kmin: `n_weights` values
+    a row), the distinct decoded blocks (block_bytes), each distinct hot
+    plane tile read (64 KiB per (cid, window)) and the deletion tiles.
+    Operations: 3 (score) + 1 (sum) per posting the call scores, counting
+    the postings of the decoded cells in their windows; cached slots are
+    not counted (an undercount only lowers the operations bound)."""
+    W = cell_start.shape[0]
+    hot = torch.unique(cids[cids >= 0])
+    nbytes = (B * W * (WINDOW_SIZE + NSUB * TILE) * 4
+              + 2 * cell_start.numel() * 4 + cids.numel() * 4
+              + B * int(n_weights) * 4
+              + block_bytes(bmeta, cell_start, cell_nblocks)
+              + len(hot) * W * WINDOW_SIZE * 4
+              + (0 if deleted is None else deleted.numel() * 4))
+    T = cell_start.shape[1]
+    cell, docs, _, _, valid = decode_cells(bmeta, planes, cell_start,
+                                           cell_nblocks)
+    local = docs - (cell // T)[:, None] * WINDOW_SIZE
+    postings = int((valid & (local >= 0) & (local < WINDOW_SIZE)).sum())
+    return nbytes, 4 * postings
 
 
 # ------------------------------------------------------------ exact top-k

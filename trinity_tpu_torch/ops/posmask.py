@@ -23,28 +23,40 @@ Source note — what it replaces and what bounds it on the H100:
   per-posting run bounds from lanes to sublanes with identity matmuls, and
   fetched each cell's rows with fixed-size DMAs sized by host-computed row
   starts and static buckets (RPOS/GOFF). None of that carries over. On
-  Hopper one block owns one cell and a warp decodes one 128-posting block
-  (``decode.cuh``); the freqs' exclusive prefix gives each posting its run
-  [hits + epf, hits + epf + f) in the positions stream, and the thread
-  owning the posting decodes the run's positions (a b-bit field across two
-  words of ``hit_pw``), ORs their bits into PW registers and stores the
-  words. A term holds a doc once, so no two threads write one doc: no
-  atomics. The kernel reads whole rows through the cache and needs neither
-  the DMA buckets nor the host row starts, so the executor keeps every hot
-  term in the mask cache and never routes a phrase to the lazy path for a
-  bucket overflow; both routes are exact, so results are the same. Bound:
-  the zero fill and stores of the PW * 64 KiB output per cell for sparse
-  cells, the dependent position loads of long runs for dense ones.
+  Hopper the work is bound by bytes: the PW * 64 KiB of words written per
+  cell, then the positions of the cell's postings. So a block owns a range
+  of a cell's docs (R * PW words = 32 KiB of shared memory, R = 2048 at
+  PW = 3) and builds the range's words there: zeroed, each position's bit
+  ORed in with a shared-memory atomicOr, then written to the cell once with
+  16-byte stores. The block decodes only the postings blocks that meet its
+  range (a block-wide count over their first/last docids), a warp per
+  block (``decode.cuh``), and the warp walks the range's position elements
+  32 consecutive ones at a time (a broadcast group offset and a coalesced
+  row of ``hit_pw``, four batches of loads in flight); each element finds
+  its posting by a binary search over the block's run starts, kept in
+  shared memory. The kernel writes into a caller's strided destination, so
+  the posmask hot cache is filled in place. It reads whole rows and needs
+  neither the DMA buckets nor the host row starts, so the executor keeps
+  every hot term in the mask cache and never routes a phrase to the lazy
+  path for a bucket overflow; both routes are exact, so results are the
+  same. ``posmask_bytes`` counts what one call must move.
 """
 
 from __future__ import annotations
 
 import torch
 
-from trinity_tpu.limits import TILE, WINDOW_SIZE
-from trinity_tpu_torch.ops.postings import _U32, _bitfield, _check, decode_cells
+from trinity_tpu_torch.limits import TILE, WINDOW_SIZE
+from trinity_tpu_torch.ops.postings import (
+    _U32,
+    _bitfield,
+    _check,
+    block_bytes,
+    decode_cells,
+)
 
 POS_GUARD_ROWS = 8  # zero rows after hit_pw: a two-row read stays in bounds
+MAX_PW = 64  # words per doc the kernel takes (a block holds >= 128 docs)
 
 
 def decode_positions(hit_pw, hit_off, e):
@@ -64,7 +76,7 @@ def decode_positions(hit_pw, hit_off, e):
 
 
 def materialize_posmask_tiles_ref(bmeta, planes, hit_pw, hit_off, cell_start,
-                                  cell_nblocks, pw_words):
+                                  cell_nblocks, pw_words, out=None):
     """Plain torch version of the posmask kernel (same contract as
     materialize_posmask_tiles). Runs on any device."""
     W, M = cell_start.shape
@@ -90,10 +102,27 @@ def materialize_posmask_tiles_ref(bmeta, planes, hit_pw, hit_off, cell_start,
     slot = ((target[post] // WINDOW_SIZE * PW + word) * WINDOW_SIZE
             + target[post] % WINDOW_SIZE)[keep] * 32 + (pos & 31)[keep]
     slot = torch.unique(slot)
-    out = torch.zeros(W * M * PW * WINDOW_SIZE, dtype=torch.int64, device=dev)
-    out.index_add_(0, slot // 32, torch.ones_like(slot) << (slot % 32))
-    out = ((out ^ 0x80000000) - 0x80000000).to(torch.int32)  # u32 -> i32 bits
-    return out.reshape(W, M, PW, TILE, TILE)
+    words = torch.zeros(W * M * PW * WINDOW_SIZE, dtype=torch.int64,
+                        device=dev)
+    words.index_add_(0, slot // 32, torch.ones_like(slot) << (slot % 32))
+    words = ((words ^ 0x80000000) - 0x80000000).to(torch.int32)  # u32 bits
+    words = words.reshape(W, M, PW, TILE, TILE)
+    if out is None:
+        return words
+    _check_out(out, W, M, PW, dev)
+    return out.copy_(words)
+
+
+def _check_out(out, W, M, PW, dev):
+    """A destination: i32 (W, M, PW, 128, 128) on `dev` whose members are
+    each contiguous (a slice of a larger cache along its member axis)."""
+    if out.dtype != torch.int32 or out.device != dev:
+        raise TypeError(f"out: expected int32 on {dev}")
+    if tuple(out.shape) != (W, M, PW, TILE, TILE):
+        raise ValueError(f"out: shape {tuple(out.shape)}, expected "
+                         f"{(W, M, PW, TILE, TILE)}")
+    if out.stride()[2:] != (WINDOW_SIZE, TILE, 1):
+        raise ValueError("out: each member's words must be contiguous")
 
 
 def materialize_posmask_tiles(
@@ -104,14 +133,18 @@ def materialize_posmask_tiles(
     cell_start: torch.Tensor,  # (W, M) i32
     cell_nblocks: torch.Tensor,  # (W, M) i32 (0 = absent)
     pw_words: int,
+    out: torch.Tensor = None,  # destination (W, M, PW, 128, 128) i32 view
 ):
-    """Returns i32[W, M, PW, 128, 128] position-presence words (module doc).
+    """Returns i32[W, M, PW, 128, 128] position-presence words (module doc),
+    written into `out` when given (any view whose members are each
+    contiguous, e.g. ``cache[:, i:i + M]``) and returned.
 
     On CUDA tensors this launches the posmask kernel (csrc/posmask.cu); on
     CPU tensors it runs materialize_posmask_tiles_ref."""
     if planes.device.type != "cuda":
         return materialize_posmask_tiles_ref(
-            bmeta, planes, hit_pw, hit_off, cell_start, cell_nblocks, pw_words
+            bmeta, planes, hit_pw, hit_off, cell_start, cell_nblocks,
+            pw_words, out,
         )
     from trinity_tpu_torch.utils import kernels
 
@@ -125,16 +158,51 @@ def materialize_posmask_tiles(
     if any(t.dim() != 2 or t.shape[1] != TILE
            for t in (bmeta, planes, hit_pw)):
         raise ValueError("bmeta, planes and hit_pw must be (rows, 128)")
-    if hit_off.dim() != 1 or cell_nblocks.shape != (W, M) or PW < 1:
-        raise ValueError("hit_off must be 1-D, cell tables (W, M), PW >= 1")
-    out = torch.empty((W, M, PW, TILE, TILE), dtype=torch.int32, device=dev)
+    if hit_off.dim() != 1 or cell_nblocks.shape != (W, M):
+        raise ValueError("hit_off must be 1-D, cell tables (W, M)")
+    if not 1 <= PW <= MAX_PW:
+        raise ValueError(f"pw_words must be in [1, {MAX_PW}]")
+    if out is None:
+        out = torch.empty((W, M, PW, TILE, TILE), dtype=torch.int32,
+                          device=dev)
+    _check_out(out, W, M, PW, dev)
+    if out.data_ptr() % 16:
+        raise ValueError("out: must be 16-byte aligned")
     if W * M:
         kernels.launch(
             "posmask", "trin_posmask_tiles",
             bmeta, planes, hit_pw, hit_off, cell_start, cell_nblocks,
-            W, M, PW, out,
+            W, M, PW, out, out.stride(0), out.stride(1),
         )
     return out
+
+
+def posmask_bytes(bmeta, planes, hit_off, cell_start, cell_nblocks,
+                  pw_words) -> int:
+    """Bytes one materialize_posmask_tiles call must move: the words
+    written once (W * M * PW * 64 KiB), the cell tables, each distinct
+    postings block's metadata row and plane bits, and each distinct
+    positions group that holds a position of an in-window posting (its
+    128 b-bit fields and its offset)."""
+    W, M = cell_start.shape
+    cell, docs, freq, off, valid = decode_cells(
+        bmeta, planes, cell_start, cell_nblocks, with_offsets=True
+    )
+    local = docs - (cell // M)[:, None] * WINDOW_SIZE
+    valid = valid & (local >= 0) & (local < WINDOW_SIZE)
+    e0 = (off & _U32)[valid]
+    e1 = e0 + freq[valid]  # runs [e0, e1), e1 > e0
+    off64 = hit_off.to(torch.int64)
+    G = len(off64) - 1
+    # groups touched: a +1 / -1 difference array over [e0 >> 7, e1-1 >> 7]
+    mark = torch.zeros(G + 1, dtype=torch.int64, device=off64.device)
+    mark.index_add_(0, e0 >> 7, torch.ones_like(e0))
+    mark.index_add_(0, ((e1 - 1) >> 7) + 1, -torch.ones_like(e0))
+    used = torch.cumsum(mark, 0)[:G] > 0
+    bits = (off64[1:] - off64[:-1])[used]
+    return (W * M * int(pw_words) * WINDOW_SIZE * 4 + 2 * W * M * 4
+            + block_bytes(bmeta, cell_start, cell_nblocks)
+            + int(bits.sum()) * TILE // 8 + 4 * int(used.sum()))
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

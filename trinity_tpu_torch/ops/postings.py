@@ -27,7 +27,8 @@ Source note — what it replaces and what bounds it on the H100:
 Host helpers ``pack_block_meta``, ``pad_planes`` and ``compute_cells`` and
 the layout constants are copies of the reference's (that module imports
 jax at module scope); tests/test_torch_postings.py holds each copy equal
-to the original.
+to the original. ``decode_bytes`` and ``block_bytes`` count the bytes a
+call must move, for its bound on the card (``utils/kernels.bound_ms``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from trinity_tpu.limits import TILE, WINDOW_SIZE
+from trinity_tpu_torch.limits import TILE, WINDOW_SIZE
 
 # Hard bounds for one (window, term) cell (copied from the reference, :63-81).
 MAXB = 136  # max blocks per cell (>= 131), multiple of 8
@@ -194,6 +195,32 @@ def materialize_freq_tiles_ref(
         torch.int32
     )
     return tiles, offs.reshape(W, T, TILE, TILE)
+
+
+# ------------------------------------------------------------ byte counts
+def block_bytes(bmeta, cell_start, cell_nblocks) -> int:
+    """Bytes of the distinct postings blocks a call's cells name: each
+    block's metadata row (8 i32) and its plane bits (128 lanes of bd + bf
+    bits). A block that two cells share (a window boundary) counts once."""
+    dev = bmeta.device
+    cs = cell_start.reshape(-1).to(torch.int64)
+    cn = cell_nblocks.reshape(-1).to(torch.int64)
+    cell = torch.repeat_interleave(torch.arange(len(cn), device=dev), cn)
+    j = torch.arange(len(cell), device=dev) - (torch.cumsum(cn, 0) - cn)[cell]
+    blk = torch.unique(cs[cell] + j)
+    meta = bmeta.reshape(-1, META_COLS)[blk].to(torch.int64)
+    bits = int((meta[:, C_BD] + meta[:, C_BF]).sum())
+    return len(blk) * META_COLS * 4 + bits * TILE // 8
+
+
+def decode_bytes(bmeta, cell_start, cell_nblocks, with_offsets=False) -> int:
+    """Bytes one materialize_freq_tiles call must move: the tiles written
+    once (W * T * 64 KiB, twice with offsets), the cell tables and the
+    distinct blocks (block_bytes)."""
+    W, T = cell_start.shape
+    tiles = W * T * WINDOW_SIZE * 4 * (2 if with_offsets else 1)
+    return (tiles + 2 * W * T * 4
+            + block_bytes(bmeta, cell_start, cell_nblocks))
 
 
 # ----------------------------------------------------------------- wrapper

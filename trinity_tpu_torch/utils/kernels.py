@@ -13,6 +13,9 @@ contracted, so the kernels keep the reference's f32 operation order.
 
 ``launches`` counts, per kernel, the launches made through ``launch`` —
 one per wrapper call that reaches the card. ``reset_launches`` zeroes them.
+``bound_ms`` turns the bytes and f32 operations a call must move and do
+(the ``*_bytes`` functions of ``ops/``) into the least time an H100 could
+take for it.
 """
 
 from __future__ import annotations
@@ -34,18 +37,33 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# C entry points: argument kinds, p = pointer (tensor or None), i = int;
+# C entry points: argument kinds, p = pointer (tensor or None), i = int,
+# l = 64-bit int;
 # every entry point takes the CUDA stream last and returns cudaError_t.
 _SIGNATURES = {
     "trin_decode_tiles": "pppppiipp",
     "trin_flat_score": "ppppppppp" "iip" "iiii" "pp",
-    "trin_tape_score": "pppppip" "pipi" "p" "iip" "iiii" "pp",
-    "trin_posmask_tiles": "pppppp" "iii" "p",
+    "trin_tape_score": "pppppip" "piipi" "p" "iip" "iiii" "pp",
+    "trin_posmask_tiles": "pppppp" "iii" "pll",
 }
+
+# one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): device
+# memory bytes/s and f32 operations/s outside the tensor cores
+H100_BYTES_PER_S = 3.35e12
+H100_F32_PER_S = 67e12
 
 launches = {"decode": 0, "flat": 0, "tape": 0, "posmask": 0}
 build_info: dict = {}
 _lib = None
+
+
+def bound_ms(nbytes: int, f32_ops: int = 0):
+    """The least time an H100 could take for a call that must move
+    `nbytes` and do `f32_ops`: (ms, "bytes" | "operations"), the larger of
+    the two times at the card's peak rates."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = f32_ops / H100_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def reset_launches() -> None:
@@ -107,7 +125,8 @@ def load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                 "l": ctypes.c_longlong}
         for name, sig in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = [kinds[c] for c in sig] + [ctypes.c_void_p]
