@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile   # where the time goes, instead
-    python3 chip_smoke.py --turns PARENT_TREE   # kernel times, two trees
+    python3 chip_smoke.py --turns PARENT_TREE   # two trees, in turns
 
 Runs from the repo root and needs one CUDA card; it exits non-zero, with no
 result line, when torch sees no card or the repo is not beside it. It
@@ -16,8 +16,9 @@ non-zero):
 1. device: the card's name, compute capability and nvidia-smi power limit;
 2. build: the CUDA kernels, compiled from trinity_tpu_torch/csrc with nvcc
    into trinity_tpu_torch/_build (git-ignored), with each kernel's
-   registers, stack frame and spills from ptxas (the tape kernel must have
-   neither stack nor spills), and the native host library, compiled from
+   registers, stack frame and spills from ptxas (the tape, flat and decode
+   kernels must have neither stack nor spills), and the native host
+   library, compiled from
    native/trinity_host.cpp into the same directory;
 3. corpus and traffic: the bench deployment — bench.py's 1,048,576-doc,
    524,288-term corpus (bench's tokens and docs.bin, indexed by the port's
@@ -27,12 +28,18 @@ non-zero):
    same corpus;
 4. each kernel against its plain torch version on the card, at the shapes
    the main path gives it (freq/offset tiles and position words
-   bit-equal, scores and sub-block maxima within 2 ulp), with device
-   times from CUDA events around 20 calls launched back to back (median of
-   5 rounds) and the bound (the bytes the call must move at the card's
+   bit-equal, scores and sub-block maxima within 2 ulp), with times
+   (median of 5 rounds of 20 calls) taken three ways: CUDA events around
+   20 calls launched back to back (cuda_ms; the plain version is timed so
+   too), the device time from a CUDA graph of 20 calls with L2 flushed
+   between them (graph_ms), and the host's time to enqueue a call
+   (host_ms); and the bound (the bytes the call must move at the card's
    memory rate, or its f32 operations at the peak rate, the larger): K1
-   on the first 8-term chunk of the hot-term planes (both output modes),
-   K2 on each flat group (T = 2, 4, 8), K3 on the OR-of-AND group, K4 on
+   on the first 8-term chunk of the hot-term planes (both output modes)
+   and, with offsets, on the cells of the largest lazy phrase group (as
+   use_posmask=False plans the 18 phrases), K2 on each flat group (T = 2,
+   4, 8) and on one query alone (search()'s B = 1), K3 on the OR-of-AND
+   group, K4 on
    the first 8-term chunk of the posmask hot cache and on the bigram and
    trigram groups' uncached cells, all over every window;
 5. the main path: Executor(seg, "cuda"), warmup, pipelined launch_batch /
@@ -60,10 +67,11 @@ line.
 
 With --turns PARENT_TREE (an unpacked older tree of this repo, e.g. from
 git archive, with the same corpus builder output) it runs phases 1-2, the
-corpus, and then times phase 4's kernel calls with the parent tree's port
-and with this one, each in its own process, in turns (parent, this, this,
-parent) on the same card, and prints each case's medians. It prints no
-result line.
+corpus, and then, with the parent tree's port and with this one, each in
+its own process, in turns (parent, this, this, parent) on the same card:
+phase 5's end-to-end numbers, and phase 4's kernel calls timed in each of
+the three ways; it prints each number's medians. It prints no result
+line.
 """
 
 import json
@@ -77,6 +85,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(REPO, "trinity_tpu_torch", "_build")
 RTOL = 2.4e-7  # 2 ulp: the repo's engine-vs-oracle score bound
 REPS = 20  # calls a timing round launches back to back
+FLUSH_BYTES = 256 << 20  # written between two graph-timed calls: 5x the L2
 
 
 def log(msg):
@@ -126,6 +135,23 @@ def ptxas_report(log):
     return out
 
 
+# kernels whose ptxas report must show no stack frame and no spills
+NO_STACK_KERNELS = ("tape_score_kernel", "flat_score_kernel",
+                    "decode_tiles_kernel")
+
+
+def stack_faults(report):
+    """What fails the ptxas check of a report (ptxas_report): each kernel
+    of NO_STACK_KERNELS that it lacks (-> None), and each instance of one
+    that keeps a stack frame or spills (-> its row)."""
+    base = lambda fn: fn.split("<")[0]
+    bad = {k: None for k in NO_STACK_KERNELS
+           if not any(base(fn) == k for fn in report)}
+    bad.update({fn: v for fn, v in report.items()
+                if base(fn) in NO_STACK_KERNELS and any(v[1:])})
+    return bad
+
+
 def phase_build():
     from trinity_tpu_torch.utils import kernels
 
@@ -137,10 +163,10 @@ def phase_build():
     for fn, (regs, stack, st, ld) in sorted(report.items()):
         log(f"[build]   {fn}: {regs} registers, {stack} bytes stack frame, "
             f"{st}/{ld} bytes spill stores/loads")
-    tape = {fn: v for fn, v in report.items() if fn.startswith("tape_score")}
-    if info["log"] and (not tape or any(any(v[1:]) for v in tape.values())):
-        raise RuntimeError(
-            f"tape_score_kernel keeps a stack or spills: {tape}")
+    bad = stack_faults(report)
+    if info["log"] and bad:
+        raise RuntimeError(f"missing from ptxas, or keeps a stack or "
+                           f"spills: {bad}")
     # native host library (index build): compiled here for this host's
     # CPU rather than loading the committed binary
     lib = os.path.join(BUILD, "libtrinity_host.so")
@@ -266,6 +292,70 @@ def cuda_ms(fn, rounds=5):
     return sorted(times)[len(times) // 2]
 
 
+def graph_ms(fn, rounds=5):
+    """Device ms of one call of `fn`, without its host time and from a cold
+    L2: REPS calls captured in one CUDA graph, each after a write of
+    FLUSH_BYTES that evicts from L2 what the call before it left there,
+    less a graph of the REPS writes alone; both replayed between CUDA
+    events, the median of `rounds` differences over REPS. The wrapper's
+    checks, allocation and launch run while the graph is captured, not
+    while it is timed (host_ms counts them). The main path never runs a
+    kernel twice on the same data back to back (K1 fills the next part of
+    the hot-term planes each call), so each call starts from a cold L2."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+    def captured(body):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(REPS):
+                body()
+        g.replay()
+        return g
+
+    graphs = (captured(lambda: (buf.zero_(), fn())), captured(buf.zero_))
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t = []
+        for g in graphs:
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            g.replay()
+            e.record()
+            e.synchronize()
+            t.append(s.elapsed_time(e))
+        times.append((t[0] - t[1]) / REPS)
+    del graphs
+    return sorted(times)[len(times) // 2]
+
+
+def host_ms(fn, rounds=5):
+    """Host ms of one call of `fn`: REPS calls enqueued on an idle card, on
+    the host's clock, without waiting for the card (the wrapper's checks,
+    allocation and launch); the median of `rounds` rounds over REPS."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        times.append((time.perf_counter() - t) * 1e3 / REPS)
+    torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2]
+
+
+# the three ways a kernel call is timed (phase 4 and --turns)
+TIMERS = {"cuda": cuda_ms, "graph": graph_ms, "host": host_ms}
+
+
 def compare(got, want, exact):
     """Max abs error and max ulp distance over finite entries; -inf (and,
     when exact, every entry) must match."""
@@ -295,8 +385,10 @@ def compare(got, want, exact):
 def kernel_cases(ex, queries):
     """The main path's shapes for each kernel, as (kernel, what, call,
     plain call, byte-count call, detail call) for the executor `ex`: K1 on
-    the first 8-term chunk of the hot-term planes; K2 on each flat group,
-    the largest first; K3 on the OR-of-AND group; K4 on the first 8-term
+    the first 8-term chunk of the hot-term planes (both output modes) and
+    on the largest lazy phrase group's cells; K2 on each flat group,
+    the largest first, then on one query alone (search()'s B = 1); K3 on
+    the OR-of-AND group; K4 on the first 8-term
     chunk of the posmask hot cache and on the bigram and trigram groups'
     uncached cells (all windows). The calls take no argument; call and
     `what` use only what the port had before this file's turns mode (so it
@@ -321,9 +413,20 @@ def kernel_cases(ex, queries):
                 *a, with_offsets=o),
             lambda a=a, o=off: po.decode_bytes(a[0], a[2], a[3], o),
             lambda: ""))
+    g = largest_lazy_group(seg, queries)
+    a = (ex.bmeta, ex.planes, put(g.arrays["cs"]), put(g.arrays["cn"]))
+    cases.append((
+        "decode", f"lazy group B={g.B}, T={g.T}, {int(g.arrays['cn'].sum())} "
+        f"blocks, offsets True",
+        lambda a=a: po.materialize_freq_tiles(*a, with_offsets=True),
+        lambda a=a: po.materialize_freq_tiles_ref(*a, with_offsets=True),
+        lambda a=a: po.decode_bytes(a[0], a[2], a[3], True),
+        lambda: ""))
     groups = ex.plan_batch(queries)
     flats = sorted((g for g in groups if g.kind == "flat"),
                    key=lambda g: -g.B * g.T)
+    # search() of one query: the largest group's first, alone (B = 1)
+    flats += ex.plan_batch([queries[flats[0].members[0][0]]])
     fused = next(g for g in groups if g.kind == "fused")
     for g, key in [(g, "flat") for g in flats] + [(fused, "tape")]:
         a = {n: put(v) for n, v in g.arrays.items()}
@@ -368,6 +471,23 @@ def kernel_cases(ex, queries):
             lambda a=args: f"{position_elements(*a[:2], *a[4:6])} position "
                            f"elements"))
     return cases
+
+
+def largest_lazy_group(seg, queries):
+    """The lazy phrase group (use_posmask=False) with the most cells, then
+    the most postings blocks: its cell tables are what _decode_batch
+    decodes, with offsets. Planned by a CPU executor (planning is host
+    work)."""
+    from trinity_tpu_torch import Executor, configure, get_config
+
+    saved = get_config().use_posmask
+    configure(use_posmask=False)
+    try:
+        groups = Executor(seg, device="cpu").plan_batch(queries)
+    finally:
+        configure(use_posmask=saved)
+    lazy = [g for g in groups if g.kind == "lazyph"]
+    return max(lazy, key=lambda g: (g.B * g.T, int(g.arrays["cn"].sum())))
 
 
 def program_size(tape):
@@ -422,7 +542,8 @@ def phase_kernels(seg, queries):
         pair = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         exact = key in ("decode", "posmask")
         err, ulp = compare(*pair, exact=exact)
-        ms, plain = cuda_ms(call), cuda_ms(ref)
+        ms, dev_ms, host = (timer(call) for timer in TIMERS.values())
+        plain = cuda_ms(ref)
         counted = nbytes()
         nb, ops = counted if isinstance(counted, tuple) else (counted, 0)
         bound, by = kernels.bound_ms(nb, ops)
@@ -430,12 +551,16 @@ def phase_kernels(seg, queries):
         match = ("bit-exact" if exact
                  else f"max {ulp:.1f} ulp, abs err {err:.3g}")
         log(f"[kernels] {key} {KERNEL_ROWS[key][0]} ({what}): {match}"
-            f"; {ms:.4f} ms vs plain {plain:.4f} ms; bound {bound:.4f} ms "
-            f"({nb} bytes, {ops} f32 ops: {by}), share {bound / ms:.3f}")
-        # the first shape of each kernel is its row in the kernels line
+            f"; {ms:.4f} ms back to back (device {dev_ms:.4f} ms, host "
+            f"{host:.4f} ms) vs plain {plain:.4f} ms; bound {bound:.4f} ms "
+            f"({nb} bytes, {ops} f32 ops: {by}), share {bound / ms:.3f} "
+            f"(of the device time {bound / dev_ms:.3f})")
+        # the first shape of each kernel is its row in the kernels line;
+        # ms and plain_ms are both timed back to back (cuda_ms)
         rows.setdefault(key, dict(
             name=KERNEL_ROWS[key][0], source=KERNEL_ROWS[key][1],
             replaces=KERNEL_ROWS[key][2], max_abs_err=err, ms=ms,
+            device_ms=dev_ms, host_ms=host,
             plain_ms=plain, bound_ms=bound, bound_by=by,
             # no single PyTorch call computes any of these functions
             library_ms=None))
@@ -444,11 +569,13 @@ def phase_kernels(seg, queries):
     return rows
 
 
-def kernel_times(root, cache_root, reps):
+def turn_times(root, cache_root, reps):
     """One turn of --turns, run in a fresh process: import the port from
     the tree at `root`, load the bench corpus cached under `cache_root`
-    (bench.CACHE_ROOT), and time each kernel case `reps` times (cuda_ms)
-    with that tree's kernels. Prints one JSON line {case: [ms, ...]}."""
+    (bench.CACHE_ROOT), measure the main path end to end (slice_metrics),
+    then time each kernel case `reps` times by each of TIMERS with that
+    tree's kernels. Prints one JSON line {"slice": {metric: [x, ...]},
+    timer: {case: [ms, ...]}, ...}."""
     import numpy as np
 
     sys.path.insert(0, root)
@@ -457,29 +584,40 @@ def kernel_times(root, cache_root, reps):
 
     bench.CACHE_ROOT = cache_root
     seg = SegmentData.load(os.path.join(bench._cache_dir(), "seg"))
-    queries, _ = bench.make_queries(seg, np.random.default_rng(bench.SEED + 1))
+    queries, id_lines = bench.make_queries(
+        seg, np.random.default_rng(bench.SEED + 1))
     ex = Executor(seg, "cuda")
-    out = {}
-    for key, what, call, *_ in kernel_cases(ex, queries):
-        out[f"{key} {what}"] = [cuda_ms(call) for _ in range(reps)]
+    ex.warmup(queries, k=10)
+    out = {"slice": slice_metrics(
+        ex, queries, [line.startswith("P") for line in id_lines])}
+    cases = [(f"{key} {what}", call)
+             for key, what, call, *_ in kernel_cases(ex, queries)]
+    for _, call in cases:  # every case once: the card's clocks settle
+        call()
+    for _ in range(reps):  # the cases in turn, so drift spreads over all
+        for name, call in cases:
+            for timer, fn in TIMERS.items():
+                out.setdefault(timer, {}).setdefault(name, []).append(
+                    fn(call))
     print(json.dumps(out), flush=True)
 
 
 def phase_turns(parent):
-    """Kernel times of the tree at `parent` against this tree's, in one
-    process each, in turns (parent, this, this, parent) on this card."""
+    """End-to-end numbers and kernel times of the tree at `parent` against
+    this tree's, in one process each, in turns (parent, this, this,
+    parent) on this card."""
     import numpy as np
 
     import bench
 
     load_corpus()
-    runs = {}
+    runs = {}  # (table, row) -> {tag: [x, ...]}
     for tag, root in (("parent", parent), ("this", REPO), ("this", REPO),
                       ("parent", parent)):
         code = ("import importlib.util as u, sys; "
                 f"s = u.spec_from_file_location('smoke', {__file__!r}); "
                 "m = u.module_from_spec(s); s.loader.exec_module(m); "
-                f"m.kernel_times({os.path.abspath(root)!r}, "
+                f"m.turn_times({os.path.abspath(root)!r}, "
                 f"{bench.CACHE_ROOT!r}, 3)")
         r = subprocess.run([sys.executable, "-c", code], cwd=root,
                            capture_output=True, text=True)
@@ -487,13 +625,15 @@ def phase_turns(parent):
             raise RuntimeError(f"turn of {root} failed:\n{r.stderr[-3000:]}")
         times = json.loads(r.stdout.strip().splitlines()[-1])
         log(f"[turns] {tag} ({root}): " + json.dumps(times))
-        for case, ts in times.items():
-            runs.setdefault(case, {}).setdefault(tag, []).extend(ts)
-    for case, by in runs.items():
-        med = {tag: float(np.median(ts)) for tag, ts in by.items()}
-        log(f"[turns] {case}: parent {med['parent']:.4f} ms, this "
-            f"{med['this']:.4f} ms ({med['parent'] / med['this']:.2f}x); "
-            f"medians of {len(by['this'])} medians each")
+        for table, rows in times.items():
+            for row, xs in rows.items():
+                runs.setdefault((table, row), {}).setdefault(tag, []).extend(
+                    xs)
+    for (table, row), by in runs.items():
+        med = {tag: float(np.median(xs)) for tag, xs in by.items()}
+        log(f"[turns] {table} {row}: parent {med['parent']:.4f}, this "
+            f"{med['this']:.4f} (parent/this {med['parent'] / med['this']:.2f}"
+            f"); medians of {len(by['this'])} each")
 
 
 def qps(ex, queries, reps=5):
@@ -510,7 +650,7 @@ def qps(ex, queries, reps=5):
 
 
 def latency(ex, queries):
-    """Median over 3 passes of the p50 and p99 of blocking search(), ms."""
+    """The p50 and p99 of blocking search(), ms, in each of 3 passes."""
     import numpy as np
 
     p50s, p99s = [], []
@@ -520,9 +660,25 @@ def latency(ex, queries):
             t = time.perf_counter()
             ex.search(q, k=10)
             lat.append(time.perf_counter() - t)
-        p50s.append(np.percentile(np.array(lat) * 1e3, 50))
-        p99s.append(np.percentile(np.array(lat) * 1e3, 99))
-    return float(np.median(p50s)), float(np.median(p99s))
+        p50s.append(float(np.percentile(np.array(lat) * 1e3, 50)))
+        p99s.append(float(np.percentile(np.array(lat) * 1e3, 99)))
+    return p50s, p99s
+
+
+def slice_metrics(ex, queries, phrase):
+    """The main path's end-to-end numbers on a warm executor, each in 3
+    runs: pipelined QPS over the mix and over its boolean and phrase
+    parts (3 loops of 5 reps), and search() p50/p99 of each part (ms, 3
+    passes). {metric: [x, x, x]}."""
+    parts = {
+        "boolean": [q for q, p in zip(queries, phrase) if not p],
+        "phrase": [q for q, p in zip(queries, phrase) if p],
+    }
+    out = {"mix QPS": [qps(ex, queries) for _ in range(3)]}
+    for name, qs in parts.items():
+        out[f"{name} QPS"] = [qps(ex, qs) for _ in range(3)]
+        out[f"{name} p50 ms"], out[f"{name} p99 ms"] = latency(ex, qs)
+    return out
 
 
 def parity(what, queries, base_topk, ours):
@@ -549,27 +705,25 @@ def phase_slice(seg, queries, base_topk, phrase):
     from trinity_tpu_torch import Executor
     from trinity_tpu_torch.utils import kernels
 
-    parts = {
-        "boolean": [q for q, p in zip(queries, phrase) if not p],
-        "phrase": [q for q, p in zip(queries, phrase) if p],
-    }
     kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()  # the peak below is the main path's
     t0 = time.perf_counter()
     ex = Executor(seg, device="cuda")
     w = ex.warmup(queries, k=10)
     log(f"[slice] executor + warmup of {len(queries)} queries "
         f"{time.perf_counter() - t0:.2f}s (warmup {w['seconds']:.2f}s)")
-    loops = [qps(ex, queries) for _ in range(3)]
-    log(f"[slice] QPS {float(np.median(loops)):.2f} (loops "
-        f"{', '.join(f'{x:.2f}' for x in loops)}), pipelined "
-        f"launch_batch/finish_batch, {len(queries)} queries x 5 reps")
-    for name, qs in parts.items():
-        part = [qps(ex, qs) for _ in range(3)]
-        p50, p99 = latency(ex, qs)
-        log(f"[slice] {name} ({len(qs)} queries): QPS "
-            f"{float(np.median(part)):.2f} (loops "
-            f"{', '.join(f'{x:.2f}' for x in part)}); search() p50 "
-            f"{p50:.3f} ms, p99 {p99:.3f} ms (median of 3 passes)")
+    m = slice_metrics(ex, queries, phrase)
+    med = lambda k: float(np.median(m[k]))
+    runs = lambda k: ", ".join(f"{x:.2f}" for x in m[k])
+    log(f"[slice] QPS {med('mix QPS'):.2f} (loops {runs('mix QPS')}), "
+        f"pipelined launch_batch/finish_batch, {len(queries)} queries x 5 "
+        f"reps")
+    for name in ("boolean", "phrase"):
+        n = sum(1 for p in phrase if p == (name == "phrase"))
+        log(f"[slice] {name} ({n} queries): QPS {med(f'{name} QPS'):.2f} "
+            f"(loops {runs(f'{name} QPS')}); search() p50 "
+            f"{med(f'{name} p50 ms'):.3f} ms, p99 {med(f'{name} p99 ms'):.3f}"
+            f" ms (median of 3 passes)")
     ours = ex.search_batch(queries, k=10)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)

@@ -44,6 +44,7 @@ from trinity_tpu_torch.ops.postings import (
     materialize_freq_tiles_ref,
 )
 from trinity_tpu_torch.utils import kernels
+from torch_blocks import wide_blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -126,6 +127,180 @@ def test_decode_kernel_bit_exact(dev, seg, with_offsets):
         assert torch.equal(g, w)
     tiles = got[0] if with_offsets else got
     assert tiles.max().item() > 255  # wide freq fields were decoded
+
+
+@pytest.mark.parametrize("case,with_offsets", [
+    ("subset", False), ("subset", True), ("empty-cells", False),
+    ("empty-cells", True),
+])
+def test_decode_kernel_windows_and_empty_cells(dev, seg, case, with_offsets):
+    """K1 on a gathered subset of windows in another order (window_base
+    [2, 0]) and on cells emptied beside an unknown term's (they write
+    zeros), both output modes: bit-equal to the plain version."""
+    df = np.asarray(seg.term_df)
+    tids = [int(t) for t in np.argsort(-df)[:3]] + [
+        seg.term_id("t400"), -1, seg.term_id("t401")]
+    cs, cn = compute_cells(seg, tids)
+    base = None
+    if case == "subset":
+        base = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+        cs, cn = cs[[2, 0]], cn[[2, 0]]
+    else:
+        cn[1, :] = 0
+        cn[:, 0] = 0
+    cs, cn = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in (cs, cn))
+    ex = Executor(seg, dev)
+    args = (ex.bmeta, ex.planes, cs, cn, base)
+    got = materialize_freq_tiles(*args, with_offsets=with_offsets)
+    want = materialize_freq_tiles_ref(*args, with_offsets=with_offsets)
+    torch.cuda.synchronize()
+    for g, w in zip(got if with_offsets else (got,),
+                    want if with_offsets else (want,)):
+        assert torch.equal(g, w)
+    tiles = got[0] if with_offsets else got
+    if case == "empty-cells":
+        assert not tiles[1].any() and not tiles[:, 0].any()
+    assert tiles.any()
+
+
+@pytest.mark.parametrize("with_offsets", [False, True])
+def test_decode_kernel_wide_blocks(dev, with_offsets):
+    """K1 where a 2048-doc range meets 40 postings blocks (more than a
+    builder's 18, so it takes them in several passes) whose plane rows
+    span more than it stages (so it reads them directly): bit-equal to
+    the plain version (tests/torch_blocks.py)."""
+    bmeta, planes, cs, cn = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                             for a in wide_blocks())
+    planes = planes.view(torch.int32)
+    got = materialize_freq_tiles(bmeta, planes, cs, cn,
+                                 with_offsets=with_offsets)
+    want = materialize_freq_tiles_ref(bmeta, planes, cs, cn,
+                                      with_offsets=with_offsets)
+    torch.cuda.synchronize()
+    for g, w in zip(got if with_offsets else (got,),
+                    want if with_offsets else (want,)):
+        assert torch.equal(g, w)
+    tiles = got[0] if with_offsets else got
+    assert (tiles[0, 0].reshape(-1)[:2048] > 0).sum() > 18 * 48
+    assert tiles[1, 0].any() and not tiles[:, 1].any()
+
+
+def test_decode_kernel_writes_a_cache_view(dev, seg, hot_cfg):
+    """K1 into a strided destination (terms 2..4 of a 6-term cache, window
+    major) equals the plain version and leaves the rest untouched; the
+    executor's hot-term planes, built in place chunk by chunk, equal the
+    plain version over every cached term."""
+    ex = Executor(seg, dev)
+    order = sorted(ex._hot, key=ex._hot.get)
+    assert len(order) > 8  # more than one chunk
+    put = lambda a: torch.from_numpy(a).to(dev)
+    cs, cn = map(put, compute_cells(seg, order))
+    want = materialize_freq_tiles_ref(ex.bmeta, ex.planes, cs, cn)
+    assert torch.equal(ex.tf_planes, want.transpose(0, 1))
+    big = torch.full((6, seg.n_windows, 128, 128), 7.0, device=dev)
+    sub = (ex.bmeta, ex.planes, cs[:, :3].contiguous(), cn[:, :3].contiguous())
+    got = materialize_freq_tiles(*sub, out=big[2:5].transpose(0, 1))
+    torch.cuda.synchronize()
+    assert got.data_ptr() == big[2].data_ptr()
+    assert torch.equal(big[2:5], want[:, :3].transpose(0, 1))
+    assert (big[:2] == 7).all() and (big[5:] == 7).all()
+
+
+def _flat_batch(seg, ex, dev, rows, flags, kmin, cached, seed):
+    """Flat-kernel inputs: one query row per entry of `rows` (term ids, -1
+    for a padding slot); the terms in `cached` read their hot-term planes.
+    Returns (cs, cn, weights, flags, kmin, cids) on the card."""
+    B, T = len(rows), len(rows[0])
+    cs = np.zeros((seg.n_windows, B * T), np.int32)
+    cn = np.zeros_like(cs)
+    cids = np.full(B * T, -1, np.int32)
+    for b, tids in enumerate(rows):
+        c_s, c_n = compute_cells(seg, tids)
+        cs[:, b * T : (b + 1) * T] = c_s
+        cn[:, b * T : (b + 1) * T] = c_n
+        cids[b * T : (b + 1) * T] = [ex._hot[t] if t in cached else -1
+                                     for t in tids]
+    cn = cn * (cids[None, :] < 0)
+    w = np.random.default_rng(seed).uniform(0.5, 3.0, size=(B, T))
+    return [torch.from_numpy(np.asarray(a, dt)).to(dev) for a, dt in (
+        (cs, np.int32), (cn, np.int32), (w, np.float32),
+        (flags, np.int32), (kmin, np.int32), (cids, np.int32))]
+
+
+def _flat_shapes(seg):
+    """K2 stress shapes over the test segment's terms by df: (rows,
+    flags, kmin, cached terms); -1 is a padding slot (kmin T + 1 on a
+    padding row)."""
+    df = np.asarray(seg.term_df)
+    top = [int(t) for t in np.argsort(-df)]
+    rare, sparse = seg.term_id("t400"), seg.term_id("t401")
+    return {
+        # one cached plane in every query of the group
+        "shared-plane": (
+            [[top[0], top[i]] for i in (3, 5, 8, 13, 21)] + [[top[0], -1]],
+            [[1, 1], [1, 4], [1, 2], [4, 1], [1, 1], [1, 0]],
+            [2, 1, 1, 1, 1, 1], {top[0]}),
+        # every slot decoded: dense cells that cross every chunk boundary
+        "t8-decoded": (
+            [top[:8], top[4:12], [-1] * 8],
+            [[1] * 8, [1, 1, 2, 4, 4, 1, 2, 4], [0] * 8], [3, 2, 9], set()),
+        "pad-rows": (
+            [[top[1], top[2], rare, sparse], [-1] * 4, [top[0], top[6], -1,
+                                                        -1], [-1] * 4],
+            [[1, 4, 1, 2], [0] * 4, [1, 1, 0, 0], [0] * 4], [2, 5, 1, 5],
+            {top[0], top[1]}),
+        "t1": ([[top[1]], [rare], [-1]], [[1], [1], [0]], [1, 1, 2],
+               {top[1]}),
+        "t2": ([[top[2], top[7]], [top[0], sparse], [-1, -1]],
+               [[1, 1], [1, 2], [0, 0]], [1, 1, 3], {top[0], top[2]}),
+    }
+
+
+@pytest.mark.parametrize("scorer", ["bm25", "tfidf", "trivial"])
+@pytest.mark.parametrize("shape", ["shared-plane", "t8-decoded", "pad-rows",
+                                   "t1", "t2"])
+def test_flat_kernel_stress_shapes(dev, seg, hot_cfg, shape, scorer):
+    """K2 against its plain version with deletions and n_docs ending
+    mid-chunk: scores and sub-block maxima, -inf positions exact; padding
+    rows all -inf."""
+    ex = Executor(seg, dev)
+    ex.set_masked_local_docs(np.arange(1, seg.n_docs, 7))
+    assert seg.n_docs % 2048
+    rows, flags, kmin, cached = _flat_shapes(seg)[shape]
+    assert cached <= set(ex._hot)
+    cs, cn, w, fl, km, cids = _flat_batch(seg, ex, dev, rows, flags, kmin,
+                                          cached, seed=len(shape))
+    args = (ex.bmeta, ex.planes, cs, cn, w, fl, km, cids, ex.tf_planes,
+            seg.n_docs, ex._deleted_tiles)
+    before = kernels.launches["flat"]
+    got = fused_flat_score_tiles(*args, scorer_name=scorer)
+    want = fused_flat_score_tiles_ref(*args, scorer_name=scorer)
+    torch.cuda.synchronize()
+    assert kernels.launches["flat"] == before + 1
+    assert_scores(got[0], want[0])
+    assert_scores(got[1], want[1])
+    assert torch.isfinite(want[0]).any()
+    T = len(rows[0])
+    for b, k in enumerate(kmin):
+        if k > T:
+            assert torch.isneginf(got[0][b]).all()
+
+
+def test_flat_kernel_caps_slots(dev, seg):
+    """The flat kernel takes at most 8 slots a query: T = 9 raises on the
+    card, while the plain version (CPU tensors) takes any T."""
+    ex = Executor(seg, "cpu")
+    rows = [[int(t) for t in np.argsort(-np.asarray(seg.term_df))[:9]]]
+    cs, cn, w, fl, km, cids = _flat_batch(seg, ex, "cpu", rows, [[1] * 9],
+                                          [2], set(), seed=9)
+    args = (ex.bmeta, ex.planes, cs, cn, w, fl, km, cids, ex.tf_planes,
+            seg.n_docs, None)
+    scores, _ = fused_flat_score_tiles(*args, scorer_name="bm25")
+    assert torch.isfinite(scores).any()
+    on_card = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(ValueError):
+        fused_flat_score_tiles(*on_card, scorer_name="bm25")
 
 
 @pytest.mark.parametrize("scorer", ["bm25", "tfidf", "trivial"])

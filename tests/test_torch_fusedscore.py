@@ -94,18 +94,82 @@ def _compare(got, want):
     assert np.isfinite(np.asarray(want[0])).any()
 
 
-@pytest.mark.parametrize("scorer", ["bm25", "tfidf", "trivial"])
-def test_flat_ref_equals_jax(inputs, scorer):
+def flat_batch(seg, terms, cached, flags, kmin, seed):
+    """Flat-kernel inputs for one query row per entry of `terms` (term
+    names, "" for a padding slot): cell tables, per-slot weights, and cids
+    where `cached` maps a term to its hot-plane id (those slots decode
+    nothing). Returns (cs, cn, weights, flags, kmin, cids)."""
+    B, T = len(terms), len(terms[0])
+    W = seg.n_windows
+    cs = np.zeros((W, B * T), np.int32)
+    cn = np.zeros((W, B * T), np.int32)
+    cids = np.full(B * T, -1, np.int32)
+    for b, row in enumerate(terms):
+        tids = [seg.term_id(t) if t else -1 for t in row]
+        c_s, c_n = compute_cells(seg, tids)
+        cs[:, b * T : (b + 1) * T] = c_s
+        cn[:, b * T : (b + 1) * T] = c_n
+        cids[b * T : (b + 1) * T] = [cached.get(t, -1) for t in row]
+    cn = cn * (cids[None, :] < 0)
+    weights = np.random.default_rng(seed).uniform(0.5, 4.0, size=(B, T))
+    return (cs, cn, weights.astype(np.float32), np.asarray(flags, np.int32),
+            np.asarray(kmin, np.int32), cids)
+
+
+# flat batches at the kernel's stress shapes (flags 1 = required, 2 =
+# negated, 4 = optional; kmin T + 1 on a padding row). t0 and t1 are the
+# fixture's hot planes 0 and 1.
+FLAT_SHAPES = {
+    # one cached plane in every query, beside decoded and padding slots
+    "shared-plane": (
+        [["t0", "t5"], ["t0", "t9"], ["t0", "t30"], ["t0", ""]],
+        {"t0": 0}, [[1, 1], [1, 4], [1, 2], [1, 0]], [2, 1, 1, 1]),
+    # eight decoded dense terms (cells that cross every chunk boundary):
+    # 3-of-8, a mix with negated and optional members, a padding row
+    "t8-decoded": (
+        [[f"t{i}" for i in range(8)], [f"t{i}" for i in range(2, 10)],
+         [""] * 8],
+        {}, [[1] * 8, [1, 1, 2, 4, 4, 1, 2, 4], [0] * 8], [3, 2, 9]),
+    "t1": ([["t1"], ["t3"], [""]], {"t1": 1}, [[1], [1], [0]], [1, 1, 2]),
+    "t2": ([["t1", "t4"], ["t6", "t0"], ["t2", "t7"], ["", ""]],
+           {"t0": 0, "t1": 1}, [[1, 1], [1, 2], [1, 1], [0, 0]],
+           [2, 1, 1, 3]),
+}
+
+
+def _flat_args(d, shape):
+    """(args before n_docs, B, T) of a flat call: the fixture's mixed
+    batch (rows: AND + NOT, OR with an optional member, 2-of-4, padded
+    row) or one of FLAT_SHAPES."""
+    if shape == "mixed":
+        flags = np.array([[1, 1, 2, 0], [1, 4, 1, 0], [1, 1, 1, 1],
+                          [0, 0, 0, 0]], np.int32)
+        kmin = np.array([2, 1, 2, d["T"] + 1], np.int32)
+        names = ("bmeta", "planes", "cs", "cn", "weights")
+        args = [d[n] for n in names] + [flags, kmin, d["cids"],
+                                        d["tf_planes"]]
+        return args, d["B"], d["T"]
+    terms, cached, flags, kmin = FLAT_SHAPES[shape]
+    cs, cn, w, fl, km, cids = flat_batch(d["seg"], terms, cached, flags,
+                                         kmin, seed=len(shape))
+    args = [d["bmeta"], d["planes"], cs, cn, w, fl, km, cids, d["tf_planes"]]
+    return args, len(terms), len(terms[0])
+
+
+@pytest.mark.parametrize("scorer,shape", [
+    ("bm25", "mixed"), ("tfidf", "mixed"), ("trivial", "mixed"),
+    ("bm25", "shared-plane"), ("tfidf", "t8-decoded"), ("trivial", "t1"),
+    ("bm25", "t2"),
+], ids=["bm25", "tfidf", "trivial", "shared-plane", "t8-decoded", "t1", "t2"])
+def test_flat_ref_equals_jax(inputs, scorer, shape):
+    """The flat kernel's plain version against the JAX kernel in interpret
+    mode, with deletions and the last window cut by n_docs mid-chunk; the
+    padding rows come out all -inf."""
     d = inputs
-    # rows: AND + NOT, OR with an optional member, 2-of-4, padded row
-    flags = np.array([[1, 1, 2, 0], [1, 4, 1, 0], [1, 1, 1, 1],
-                      [0, 0, 0, 0]], np.int32)
-    kmin = np.array([2, 1, 2, d["T"] + 1], np.int32)
-    names = ("bmeta", "planes", "cs", "cn", "weights")
-    args = [d[n] for n in names] + [flags, kmin, d["cids"], d["tf_planes"]]
+    args, B, T = _flat_args(d, shape)
     want = ref.fused_flat_score_tiles(
         *map(jnp.asarray, args), d["seg"].n_docs, jnp.asarray(d["deleted"]),
-        scorer_name=scorer, n_windows=d["W"], n_terms=d["T"], batch=d["B"],
+        scorer_name=scorer, n_windows=d["W"], n_terms=T, batch=B,
         interpret=True,
     )
     got = port.fused_flat_score_tiles(
@@ -113,7 +177,9 @@ def test_flat_ref_equals_jax(inputs, scorer):
         scorer_name=scorer,
     )
     _compare(got, want)
-    assert np.isneginf(got[0][3].numpy()).all()  # padded row
+    kmin = args[6]
+    for b in np.flatnonzero(kmin > T):
+        assert np.isneginf(got[0][b].numpy()).all()  # padded row
 
 
 TAPES = [

@@ -171,3 +171,34 @@ def test_chip_smoke_corpus_equals_bench_corpus(monkeypatch, tmp_path):
     assert len(out["port"][0]) > 5_000 * 40 * 4
     assert_same_segment(PortSegmentData.load(out["port"][1]),
                         RefSegmentData.load(out["bench"][1]))
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117flat_score_kernelILi8EEEvPKiS2_PKfS2_S2_S2_S4_iiS4_iiiiPfS5_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117flat_score_kernelILi8EEEvPKiS2_PKfS2_S2_S2_S4_iiS4_iiiiPfS5_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 168 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117tape_score_kernelILi4ELi4EEEvPKiS2_S2_S2_PKfiS2_PK4int4iS2_iS4_iiS4_iiiiPfS9_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117tape_score_kernelILi4ELi4EEEvPKiS2_S2_S2_PKfiS2_PK4int4iS2_iS4_iiS4_iiiiPfS9_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119decode_tiles_kernelEPKiS1_S1_S1_S1_iPfxxPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119decode_tiles_kernelEPKiS1_S1_S1_S1_iPfxxPi
+    {stack} bytes stack frame, 0 bytes spill stores, {spill} bytes spill loads
+ptxas info    : Used 40 registers
+"""
+
+
+@pytest.mark.parametrize("stack,spill,bad", [
+    (0, 0, {}), (8, 0, {"decode_tiles_kernel": [40, 8, 0, 0]}),
+    (0, 4, {"decode_tiles_kernel": [40, 0, 0, 4]})])
+def test_chip_smoke_ptxas_check(stack, spill, bad):
+    """chip_smoke's ptxas check reads templated and plain kernel names and
+    fails on a stack frame, a spill or a missing kernel."""
+    report = chip_smoke.ptxas_report(PTXAS_LOG.format(stack=stack,
+                                                      spill=spill))
+    assert report["flat_score_kernel<8>"] == [72, 0, 0, 0]
+    assert report["tape_score_kernel<4,4>"] == [56, 0, 0, 0]
+    assert chip_smoke.stack_faults(report) == bad
+    del report["flat_score_kernel<8>"]
+    assert "flat_score_kernel" in chip_smoke.stack_faults(report)

@@ -5,7 +5,8 @@
 - materialize_freq_tiles_ref (the plain torch version of the CUDA decode
   kernel) equals the JAX materialize_freq_tiles, run in interpret mode as
   the JAX package's own tests run it on the CPU, with and without hit
-  offsets, on a 3-window segment with freqs above 255 and wide bit widths.
+  offsets, on a 3-window segment with freqs above 255 and wide bit widths,
+  and on blocks built by hand (tests/torch_blocks.py).
   Freq and offset tiles are integers: they must match exactly.
 - On CPU tensors the wrapper runs that plain version.
 - decode_bytes and block_bytes give the byte counts worked out by hand.
@@ -20,6 +21,7 @@ import torch
 
 import trinity_tpu.ops.postings as ref
 import trinity_tpu_torch.ops.postings as port
+from torch_blocks import wide_blocks
 from torch_twins import bulk_pair
 
 
@@ -81,23 +83,48 @@ def test_host_helpers_equal_reference(segs):
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("with_offsets", [False, True])
-def test_decode_ref_equals_jax(seg, with_offsets):
-    bmeta = port.pack_block_meta(seg)
-    planes = port.pad_planes(seg.planes)
-    tids = _term_ids(seg)
-    cs, cn = port.compute_cells(seg, tids)
+@pytest.mark.parametrize("case,with_offsets", [
+    ("all", False), ("all", True), ("subset", False), ("subset", True),
+    ("empty-cells", True), ("out-view", False), ("wide-blocks", False),
+    ("wide-blocks", True),
+], ids=["False", "True", "subset", "subset-offsets", "empty-cells",
+        "out-view", "wide-blocks", "wide-blocks-offsets"])
+def test_decode_ref_equals_jax(seg, case, with_offsets):
+    """The decode kernel's plain version against the JAX kernel in
+    interpret mode: every window; a gathered subset of windows in another
+    order (window_base [2, 0]); cells emptied beside the unknown term's;
+    the freq tiles written into a strided view of a larger cache; 40
+    partial blocks with wide fields in one 2048-doc range (torch_blocks)."""
+    if case == "wide-blocks":
+        bmeta, planes, cs, cn = wide_blocks()
+        assert cn[0, 0] > 40
+    else:
+        bmeta = port.pack_block_meta(seg)
+        planes = port.pad_planes(seg.planes)
+        cs, cn = port.compute_cells(seg, _term_ids(seg))
+        assert cs.shape[0] == 3 and seg.block_bits_freq.max() >= 9
+    base = None
+    if case == "subset":
+        base = np.array([2, 0], np.int32)
+        cs, cn = cs[base], cn[base]
+    if case == "empty-cells":
+        cn[1, :] = 0
+        cn[:, 4] = 0
     W, T = cs.shape
-    assert W == 3 and seg.block_bits_freq.max() >= 9
     want = ref.materialize_freq_tiles(
         jnp.asarray(bmeta), jnp.asarray(planes), jnp.asarray(cs),
-        jnp.asarray(cn), n_windows=W, n_terms=T, interpret=True,
-        with_offsets=with_offsets,
+        jnp.asarray(cn), None if base is None else jnp.asarray(base),
+        n_windows=W, n_terms=T, interpret=True, with_offsets=with_offsets,
     )
+    out = cache = None
+    if case == "out-view":
+        cache = torch.full((T + 2, W, 128, 128), 7.0)
+        out = cache[1 : T + 1].transpose(0, 1)
     got = port.materialize_freq_tiles(
         torch.from_numpy(bmeta), torch.from_numpy(planes.view(np.int32)),
         torch.from_numpy(cs), torch.from_numpy(cn),
-        with_offsets=with_offsets,
+        None if base is None else torch.from_numpy(base),
+        with_offsets=with_offsets, out=out,
     )
     if not with_offsets:
         got, want = (got,), (want,)
@@ -107,6 +134,9 @@ def test_decode_ref_equals_jax(seg, with_offsets):
                            np.dtype("int32"): torch.int32}[w.dtype]
         np.testing.assert_array_equal(g.numpy(), w)
     assert got[0].max() > 255
+    if cache is not None:
+        assert got[0].data_ptr() == out.data_ptr()
+        assert (cache[0] == 7).all() and (cache[-1] == 7).all()
 
 
 def test_decode_window_base_subset(seg):

@@ -43,27 +43,54 @@ __device__ __forceinline__ uint32_t bitfield(uint32_t lo, uint32_t hi,
   return static_cast<uint32_t>(v) & mask;
 }
 
-// Decode block `blk` with the whole warp (every lane must call it).
-// wdoc: the window's first docid; [lo, hi): the doc range (relative to
-// wdoc) whose postings count as valid.
-__device__ __forceinline__ void decode_block_warp(
-    const int* __restrict__ bmeta, const int* __restrict__ planes, int blk,
-    int wdoc, int lo, int hi, Lanes4& o) {
-  const int lane = threadIdx.x & 31;
-  const int* m = bmeta + static_cast<size_t>(blk) * META_COLS;
-  const uint32_t poff = static_cast<uint32_t>(__ldg(m + C_POFF));
-  const int bd = __ldg(m + C_BD);
-  const int bf = __ldg(m + C_BF);
-  const uint32_t first = static_cast<uint32_t>(__ldg(m + C_FIRST));
-  const int count = __ldg(m + C_COUNT);
-  const uint32_t hits = static_cast<uint32_t>(__ldg(m + C_HITS));
+// A block's metadata row (the columns the decode reads) and this lane's
+// 16-byte words of its three plane rows.
+struct RawBlock {
+  uint32_t poff, first, hits;
+  int bd, bf, count;
+  int4 a, b, c;
+};
 
+// The metadata row of block `blk`, as two 16-byte words (rows are 32-byte
+// aligned): x..w = C_POFF, C_BD, C_BF, C_FIRST, then C_COUNT, C_HITS,
+// C_LAST, C_MAXF.
+__device__ __forceinline__ void load_meta(const int* __restrict__ bmeta,
+                                          int blk, int4& m0, int4& m1) {
+  const int4* m = reinterpret_cast<const int4*>(
+      bmeta + static_cast<size_t>(blk) * META_COLS);
+  m0 = __ldg(m);
+  m1 = __ldg(m + 1);
+}
+
+__device__ __forceinline__ void set_meta(RawBlock& r, int4 m0, int4 m1) {
+  r.poff = static_cast<uint32_t>(m0.x);
+  r.bd = m0.y;
+  r.bf = m0.z;
+  r.first = static_cast<uint32_t>(m0.w);
+  r.count = m1.x;
+  r.hits = static_cast<uint32_t>(m1.y);
+}
+
+// This lane's words of the block's three plane rows (needs r.poff).
+__device__ __forceinline__ void load_rows(const int* __restrict__ planes,
+                                          RawBlock& r) {
   const int4* row = reinterpret_cast<const int4*>(
-                        planes + static_cast<size_t>(poff >> 5) * TILE) +
-                    lane;
-  const int4 a = __ldg(row);
-  const int4 b = __ldg(row + TILE / 4);
-  const int4 c = __ldg(row + 2 * (TILE / 4));
+                        planes + static_cast<size_t>(r.poff >> 5) * TILE) +
+                    (threadIdx.x & 31);
+  r.a = __ldg(row);
+  r.b = __ldg(row + TILE / 4);
+  r.c = __ldg(row + 2 * (TILE / 4));
+}
+
+// The decode of a loaded block by the whole warp (every lane must call
+// it). wdoc: the window's first docid; [lo, hi): the doc range (relative
+// to wdoc) whose postings count as valid.
+__device__ __forceinline__ void decode_loaded(const RawBlock& r, int wdoc,
+                                              int lo, int hi, Lanes4& o) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t poff = r.poff, first = r.first, hits = r.hits;
+  const int bd = r.bd, bf = r.bf, count = r.count;
+  const int4 a = r.a, b = r.b, c = r.c;
   const uint32_t w0[4] = {(uint32_t)a.x, (uint32_t)a.y, (uint32_t)a.z,
                           (uint32_t)a.w};
   const uint32_t w1[4] = {(uint32_t)b.x, (uint32_t)b.y, (uint32_t)b.z,
@@ -108,6 +135,18 @@ __device__ __forceinline__ void decode_block_warp(
   }
 }
 
+// Decode block `blk` with the whole warp (every lane must call it).
+__device__ __forceinline__ void decode_block_warp(
+    const int* __restrict__ bmeta, const int* __restrict__ planes, int blk,
+    int wdoc, int lo, int hi, Lanes4& o) {
+  RawBlock r;
+  int4 m0, m1;
+  load_meta(bmeta, blk, m0, m1);
+  set_meta(r, m0, m1);
+  load_rows(planes, r);
+  decode_loaded(r, wdoc, lo, hi, o);
+}
+
 // Rows [first, second) of a cell's n postings blocks b0..b0+n-1 whose
 // [C_FIRST, C_LAST] docids meet [lo, hi). A term's blocks are sorted by
 // docid and disjoint, so the rows ending below lo and the rows starting
@@ -128,6 +167,26 @@ __device__ __forceinline__ int2 overlap_rows(const int* __restrict__ bmeta,
     }
     below += __syncthreads_count(last < lo);
     upto += __syncthreads_count(first < hi);
+  }
+  return make_int2(below, upto);
+}
+
+// overlap_rows by one warp, a lane a row, with ballots for the counts
+// (every lane of the warp must call it, with the same b0 and n).
+__device__ __forceinline__ int2 overlap_rows_warp(const int* __restrict__ bmeta,
+                                                  int b0, int n, uint32_t lo,
+                                                  uint32_t hi) {
+  int below = 0, upto = 0;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + static_cast<int>(threadIdx.x & 31);
+    uint32_t first = hi, last = lo;  // rows past n count in neither
+    if (j < n) {
+      const int* m = bmeta + static_cast<size_t>(b0 + j) * META_COLS;
+      first = static_cast<uint32_t>(__ldg(m + C_FIRST));
+      last = static_cast<uint32_t>(__ldg(m + C_LAST));
+    }
+    below += __popc(__ballot_sync(FULL, last < lo));
+    upto += __popc(__ballot_sync(FULL, first < hi));
   }
   return make_int2(below, upto);
 }

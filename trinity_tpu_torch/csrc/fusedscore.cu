@@ -23,16 +23,38 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ------------------------------------------------------------------ flat
-// One block per (window, query). Per-doc running state for the whole
-// window lives in shared memory: the f32 score sum and a byte holding the
-// required-present count (bits 0-6) and the negated-present flag (bit 7).
-// Slots stream through it in slot order, so each doc's sum is taken in the
-// reference's order (absent slots add nothing, where the reference adds an
-// exact +0.0).
-constexpr int FLAT_THREADS = 512;  // 16 warps: warp k owns sub-block k
-constexpr int FLAT_SMEM = trin::WINDOW * (sizeof(float) + 1);
+// One block of 256 threads per (half window, query), the query fastest in
+// the grid, so the queries of a window run side by side and a hot-term
+// plane that several of them read comes from L2. Per-doc running state
+// for the block's 8192 docs lives in shared memory (40 KiB, so 4 blocks an
+// SM): the f32 score sum and a byte holding the required-present count
+// (bits 0-6) and the negated-present flag (bit 7). Thread i owns docs
+// 4(i + 256k), k < 8, in every dense step, so cached slots (a thread
+// reads its docs' freqs from the hot-term plane, all 8 16-byte loads
+// issued before the first update) follow one another with no barrier. A
+// decoded slot is a scatter into other threads' docs, so it sits between
+// two barriers; its postings blocks are decoded up front, at block start,
+// all decoded slots' at once (warp t finds which of slot t's blocks meet
+// the half window, trin::overlap_rows_warp, and only those are decoded;
+// warp k decodes and holds flattened row k of them), so their metadata and
+// plane loads overlap instead of costing a round trip per slot. Slots are
+// applied in slot order, so each doc's sum is taken in the reference's
+// order (absent slots add nothing, where the reference adds an exact
+// +0.0). A padding row (no slot, kmin > 0) writes -inf directly. Scores go
+// out as 16-byte words, written once; the sub-block maxima from a warp max
+// and a max over the sub-block's 8 warp-words.
+constexpr int FLAT_SPLIT = 2;  // blocks a (window, query) is cut into
+constexpr int FLAT_DOCS = trin::WINDOW / FLAT_SPLIT;  // docs a block owns
+constexpr int FLAT_THREADS = 512 / FLAT_SPLIT;
+constexpr int FLAT_WARPS = FLAT_THREADS / 32;
+constexpr int FLAT_WORDS = FLAT_DOCS / 4 / FLAT_THREADS;  // 8 a thread
+constexpr int FLAT_SUBS = NSUB / FLAT_SPLIT;  // sub-blocks a block owns
+constexpr int FLAT_SMEM = FLAT_DOCS * (sizeof(float) + 1);
+static_assert(FLAT_SUBS == FLAT_WARPS, "a warp a row of maxima");
+constexpr int FLAT_MAX_SLOTS = 8;  // slots a query has (the executor's cap)
+static_assert(FLAT_WARPS >= FLAT_MAX_SLOTS, "a warp a slot");
 
-__global__ void __launch_bounds__(FLAT_THREADS)
+__global__ void __launch_bounds__(FLAT_THREADS, 2 * FLAT_SPLIT)
 flat_score_kernel(const int* __restrict__ bmeta,
                   const int* __restrict__ planes,
                   const int* __restrict__ cell_start,
@@ -47,85 +69,189 @@ flat_score_kernel(const int* __restrict__ bmeta,
                   float* __restrict__ rmax) {
   extern __shared__ float4 smem4[];
   float* ssum = reinterpret_cast<float*>(smem4);
-  unsigned char* st = reinterpret_cast<unsigned char*>(ssum + trin::WINDOW);
-  const int w = blockIdx.x;
-  const int b = blockIdx.y;
+  uint32_t* st4 = reinterpret_cast<uint32_t*>(ssum + FLAT_DOCS);
+  unsigned char* st = reinterpret_cast<unsigned char*>(st4);
+  __shared__ int sfl[FLAT_MAX_SLOTS], scid[FLAT_MAX_SLOTS];
+  __shared__ int sb0[FLAT_MAX_SLOTS], sn[FLAT_MAX_SLOTS];
+  __shared__ float swt[FLAT_MAX_SLOTS];
+  __shared__ float red[FLAT_SUBS][SUB_DOCS / 128];  // [sub-block][its warp word]
+  const int b = blockIdx.x;
+  const int w = blockIdx.y / FLAT_SPLIT;
+  const int p0 = (blockIdx.y % FLAT_SPLIT) * FLAT_DOCS;  // the block's docs
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int nwarps = blockDim.x >> 5;
   const int wdoc = w * trin::WINDOW;
+  float* out = scores + (static_cast<size_t>(b) * W + w) * trin::WINDOW + p0;
+  float* rrow =
+      rmax + ((static_cast<size_t>(b) * W + w) * NSUB + p0 / SUB_DOCS) * trin::TILE;
 
-  for (int i = tid; i < trin::WINDOW / 4; i += blockDim.x) {
-    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    reinterpret_cast<uint32_t*>(st)[i] = 0u;
+  if (warp < FLAT_MAX_SLOTS) {  // warp t reads slot t (past T: padding)
+    int fl = 0, cid = -1, s0 = 0, n = 0;
+    float wt = 0.f;
+    if (warp < T) {
+      const int slot = b * T + warp;
+      const size_t cell = static_cast<size_t>(w) * B * T + slot;
+      fl = flags[slot];
+      cid = cids[slot];
+      wt = weights[slot];
+      s0 = cell_start[cell];
+      n = fl != 0 && cid < 0 ? cell_nblocks[cell] : 0;
+    }
+    // a decoded slot's rows that meet the block's docs (overlap_rows_warp)
+    const int2 rows = trin::overlap_rows_warp(bmeta, s0, n, wdoc + p0,
+                                              wdoc + p0 + FLAT_DOCS);
+    if (lane == 0) {
+      sfl[warp] = fl;
+      scid[warp] = cid;
+      swt[warp] = wt;
+      sb0[warp] = s0 + rows.x;
+      sn[warp] = rows.y - rows.x;
+    }
   }
+  const int km = kmin[b];
   __syncthreads();
+  bool any = false;
+  for (int t = 0; t < T; ++t) any |= sfl[t] != 0;
+  if (!any && km > 0) {  // a padding row matches nothing
+    const float4 ninf =
+        make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    for (int i = tid; i < FLAT_DOCS / 4; i += FLAT_THREADS)
+      reinterpret_cast<float4*>(out)[i] = ninf;
+    for (int i = tid; i < FLAT_SUBS * trin::TILE / 4; i += FLAT_THREADS)
+      reinterpret_cast<float4*>(rrow)[i] = ninf;
+    return;
+  }
 
-  for (int t = 0; t < T; ++t) {
-    const int slot = b * T + t;
-    const int fl = flags[slot];
+  // the decoded slots' rows, flattened in slot order; warp k decodes row
+  // k now and holds it
+  int hslot = -1, hblk = 0;  // the slot and the postings block of the held row
+#pragma unroll
+  for (int t = 0, base = 0; t < FLAT_MAX_SLOTS; base += sn[t], ++t)
+    if (warp >= base && warp < base + sn[t]) {
+      hslot = t;
+      hblk = sb0[t] + warp - base;
+    }
+  // zero this thread's docs while the held row's loads are in flight
+#pragma unroll
+  for (int k = 0; k < FLAT_WORDS; ++k) {
+    const int i = tid + k * FLAT_THREADS;
+    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    st4[i] = 0u;
+  }
+  trin::Lanes4 held;
+  if (hslot >= 0)
+    trin::decode_block_warp(bmeta, planes, hblk, wdoc, p0, p0 + FLAT_DOCS,
+                            held);
+
+  // base: the flattened index of slot t's first decoded row
+  for (int t = 0, base = 0; t < T; base += sn[t], ++t) {
+    const int fl = sfl[t];
     if (fl == 0) continue;  // a padding slot changes no doc's state
     const bool req = fl & 1, neg = fl & 2, scored = fl & 5;
-    const float wt = weights[slot];
+    const float wt = swt[t];
     auto apply = [&](int d, float f) {
-      if (scored) ssum[d] = __fadd_rn(ssum[d], trin::score_tile(scorer, f, wt));
+      if (scored)
+        ssum[d] = __fadd_rn(ssum[d], trin::score_tile(scorer, f, wt));
       unsigned char s = st[d];
       if (req) s += 1;
       if (neg) s |= 0x80;
       st[d] = s;
     };
-    const int cid = cids[slot];
-    if (cid >= 0) {  // hot-term plane: a dense read of the cached tile
+    const int cid = scid[t];
+    if (cid >= 0) {  // hot-term plane: this thread's docs, no barrier
       const float4* src = reinterpret_cast<const float4*>(
-          tf_planes + (static_cast<size_t>(cid) * W_tf + w) * trin::WINDOW);
-      for (int i = tid; i < trin::WINDOW / 4; i += blockDim.x) {
-        const float4 v = __ldg(src + i);
-        if (v.x > 0.f) apply(4 * i, v.x);
-        if (v.y > 0.f) apply(4 * i + 1, v.y);
-        if (v.z > 0.f) apply(4 * i + 2, v.z);
-        if (v.w > 0.f) apply(4 * i + 3, v.w);
+          tf_planes + (static_cast<size_t>(cid) * W_tf + w) * trin::WINDOW +
+          p0);
+      float4 v[FLAT_WORDS];
+#pragma unroll
+      for (int k = 0; k < FLAT_WORDS; ++k)
+        v[k] = __ldg(src + tid + k * FLAT_THREADS);
+#pragma unroll
+      for (int k = 0; k < FLAT_WORDS; ++k) {
+        const int d = 4 * (tid + k * FLAT_THREADS);
+        if (v[k].x > 0.f) apply(d, v[k].x);
+        if (v[k].y > 0.f) apply(d + 1, v[k].y);
+        if (v[k].z > 0.f) apply(d + 2, v[k].z);
+        if (v[k].w > 0.f) apply(d + 3, v[k].w);
       }
-    } else {
-      const size_t cell = static_cast<size_t>(w) * B * T + slot;
-      const int b0 = cell_start[cell];
-      const int n = cell_nblocks[cell];
-      for (int j = warp; j < n; j += nwarps) {
-        trin::Lanes4 o;
-        trin::decode_block_warp(bmeta, planes, b0 + j, wdoc, 0,
-                                trin::WINDOW, o);
+    } else if (sn[t]) {  // decoded: a scatter between two barriers
+      __syncthreads();
+      if (hslot == t) {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (o.valid[i]) apply(o.local[i], o.freq[i]);
+          if (held.valid[i]) apply(held.local[i] - p0, held.freq[i]);
       }
+      // rows past the warps' held ones: decoded here
+      for (int r = max(base, FLAT_WARPS) + warp; r < base + sn[t];
+           r += FLAT_WARPS) {
+        trin::Lanes4 o;
+        trin::decode_block_warp(bmeta, planes, sb0[t] + r - base, wdoc, p0,
+                                p0 + FLAT_DOCS, o);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (o.valid[i]) apply(o.local[i] - p0, o.freq[i]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
-  const int km = kmin[b];
-  const int nd_local = n_docs - wdoc;
-  const float* del = deleted ? deleted + static_cast<size_t>(w) * trin::WINDOW
-                             : nullptr;
-  float* out = scores + (static_cast<size_t>(b) * W + w) * trin::WINDOW;
-  float mx = -INFINITY;
-  for (int r = 0; r < SUB_DOCS / trin::TILE; ++r) {
-    const int d0 = warp * SUB_DOCS + r * trin::TILE + 4 * lane;
-    float v[4];
+  // this thread's docs: scores as 16-byte words; the sub-block maxima from
+  // a warp max (a warp's words lie in one sub-block) and a max over the
+  // sub-block's 8 warps
+  const int nd_local = n_docs - wdoc - p0;  // the block's docs in the segment
+  const float* del =
+      deleted ? deleted + static_cast<size_t>(w) * trin::WINDOW + p0 : nullptr;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int d = d0 + i;
-      const unsigned char s = st[d];
-      const bool m = (s & 0x7f) >= km && !(s & 0x80) && d < nd_local &&
-                     (del == nullptr || del[d] == 0.f);
-      v[i] = m ? ssum[d] : -INFINITY;
-      mx = fmaxf(mx, v[i]);
+  for (int k = 0; k < FLAT_WORDS; ++k) {
+    const int i = tid + k * FLAT_THREADS;
+    const int d = 4 * i;
+    const float4 s4 = smem4[i];
+    const uint32_t sw = st4[i];
+    const float4 dl = del ? __ldg(reinterpret_cast<const float4*>(del + d))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    const float dv[4] = {dl.x, dl.y, dl.z, dl.w};
+    float o[4];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t s = (sw >> (8 * j)) & 0xffu;
+      const bool m = static_cast<int>(s & 0x7f) >= km && !(s & 0x80) &&
+                     d + j < nd_local && dv[j] == 0.f;
+      o[j] = m ? sv[j] : -INFINITY;
+      mx = fmaxf(mx, o[j]);
     }
-    reinterpret_cast<float4*>(out + d0)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(out)[i] = make_float4(o[0], o[1], o[2], o[3]);
+    mx = warp_max(mx);
+    // word i lies in the block's sub-block i / 256, as warp word i % 256 / 32
+    if (lane == 0) red[i / (SUB_DOCS / 4)][i % (SUB_DOCS / 4) / 32] = mx;
   }
-  mx = warp_max(mx);
-  float* rrow =
-      rmax + ((static_cast<size_t>(b) * W + w) * NSUB + warp) * trin::TILE;
-  reinterpret_cast<float4*>(rrow)[lane] = make_float4(mx, mx, mx, mx);
+  __syncthreads();
+  {  // warp s writes sub-block s's row of maxima
+    float mx = red[warp][0];
+#pragma unroll
+    for (int i = 1; i < SUB_DOCS / 128; ++i) mx = fmaxf(mx, red[warp][i]);
+    reinterpret_cast<float4*>(rrow + warp * trin::TILE)[lane] =
+        make_float4(mx, mx, mx, mx);
+  }
+}
+
+int launch_flat(const int* bmeta, const int* planes, const int* cell_start,
+                const int* cell_nblocks, const float* weights,
+                const int* flags, const int* kmin, const int* cids,
+                const float* tf_planes, int W_tf, int n_docs,
+                const float* deleted, int W, int B, int T, int scorer,
+                float* scores, float* rmax, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      flat_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FLAT_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flat_score_kernel<<<dim3(B, W * FLAT_SPLIT), FLAT_THREADS, FLAT_SMEM,
+                      stream>>>(
+      bmeta, planes, cell_start, cell_nblocks, weights, flags, kmin, cids,
+      tf_planes, W_tf, n_docs, deleted, W, B, T, scorer, scores, rmax);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------------ tape
@@ -384,14 +510,10 @@ extern "C" int trin_flat_score(const int* bmeta, const int* planes,
                                const float* deleted, int W, int B, int T,
                                int scorer, float* scores, float* rmax,
                                cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      flat_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      FLAT_SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flat_score_kernel<<<dim3(W, B), FLAT_THREADS, FLAT_SMEM, stream>>>(
-      bmeta, planes, cell_start, cell_nblocks, weights, flags, kmin, cids,
-      tf_planes, W_tf, n_docs, deleted, W, B, T, scorer, scores, rmax);
-  return static_cast<int>(cudaGetLastError());
+  if (T < 1 || T > FLAT_MAX_SLOTS) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_flat(bmeta, planes, cell_start, cell_nblocks, weights, flags,
+                     kmin, cids, tf_planes, W_tf, n_docs, deleted, W, B, T,
+                     scorer, scores, rmax, stream);
 }
 
 // prog: (L, 4) i32 register program using nreg registers (at most 16);

@@ -254,11 +254,12 @@ class Executor:
         out = torch.empty((len(order), W, TILE, TILE), device=self.device)
         for i in range(0, len(order), HOT_CHUNK):
             tids = order[i : i + HOT_CHUNK]
-            cs, cn = compute_cells(seg, tids + [-1] * (HOT_CHUNK - len(tids)))
-            tiles = materialize_freq_tiles(
-                self.bmeta, self.planes, self._put(cs), self._put(cn)
-            )  # (W, HOT_CHUNK, 128, 128)
-            out[i : i + len(tids)] = tiles[:, : len(tids)].transpose(0, 1)
+            cs, cn = compute_cells(seg, tids)
+            # the kernel writes the chunk's tiles into the cache in place
+            materialize_freq_tiles(
+                self.bmeta, self.planes, self._put(cs), self._put(cn),
+                out=out[i : i + len(tids)].transpose(0, 1),
+            )
         return out
 
     @property

@@ -18,14 +18,26 @@ Two kernels, both in ``csrc/fusedscore.cu``:
 ``fused_flat_score_tiles``, ``fusedscore.py:421``, Pallas body
 ``_make_score_kernel(flat=True)``). Flat AND/OR/NOT/k-of-n/optional shapes
 arrive as data (per-slot flags 1 = required, 2 = negated, 4 = optional, and
-kmin). One block of 512 threads owns one (window, query) and keeps per-doc
-running state for the whole 16384-doc window in shared memory (f32 score
-sum + a byte of required-count and negated flag, 80 KiB); the slots stream
-through it in slot order, so the f32 sum is taken in the reference's order.
-The TPU kernel held every decoded slot tile in VMEM at once; a Hopper block
-has at most 227 KB, so streaming is what makes the window fit. Bound on
-the H100: the 64 KiB score tile written per (window, query), plus the
-decode of each slot's blocks (or a 64 KiB plane read for a cached slot).
+kmin). The TPU kernel held every slot's tile of a (window, query) in VMEM
+at once. On the H100 the call is bound by bytes: the score tiles and
+sub-block maxima written once (B * W * 72 KiB, most of the call), each
+distinct hot-term plane read once (64 KiB a window) and the decoded
+slots' postings blocks. A block of 256 threads owns half a window of one
+query, with the query fastest in the grid, so a plane that several
+queries of a window read comes from L2, not device memory. Its docs'
+running state (f32 sum, required count and negated flag) is in shared
+memory (40 KiB, 4 blocks an SM). A thread owns the same 32 docs in every
+dense step, so cached slots follow one another with no barrier, each
+thread's 8 16-byte plane loads issued before its first update; a decoded
+slot scatters into other threads' docs between two barriers; only its
+postings blocks that meet the half window are decoded, up front with
+every other decoded slot's (a warp a block), so their loads overlap. Slots are applied in slot order, so
+the f32 sum is taken in the reference's order. Padding rows write -inf
+directly. At most 8 slots a query (the executor's flat cap).
+Running state in registers instead (a block per 2048-doc chunk, every
+(doc, slot) folded by its thread) measured slower on the card: it pays
+for every doc of a sparse decoded slot, where the scatter pays per
+posting (PERF.md).
 
 ``fused_score_tiles`` (replaces ``fused_score_tiles``, ``fusedscore.py:378``,
 eval ``eval_tape_tiles``). Non-flat trees (OR-of-AND, slot reuse) with at
@@ -33,10 +45,11 @@ most 8 used slots need every slot of a doc at once, so a block owns a
 2048-doc eighth of a window and stages each used slot's freqs for that
 range in shared memory (8 KiB a slot); a block-wide count over the cells'
 first/last docids finds the blocks that meet the range, and only those
-are decoded. The tape arrives as a register program (``encode_tape``):
-the stack depth at each point of a postfix walk does not depend on the
-data, so each stack slot becomes a numbered register and each op names
-the register it writes (binary ops read it and the next one). The kernel runs the program once per 4, 2 or 1
+are decoded (``stage_slots``). The tape arrives as a register program
+(``encode_tape``): the stack depth at each point of a postfix walk does
+not depend on the data, so each stack slot becomes a numbered register
+and each op names the register it writes (binary ops read it and the
+next one). The kernel runs the program once per 4, 2 or 1
 docs (for 4, 8 or 16 registers) with the ops unrolled over the registers
 and docs, so the registers stay in the register file; a postfix stack
 indexed at run time would live in local memory. Each doc's f32 sum is
@@ -70,6 +83,7 @@ NSUB = 16  # sub-blocks per window (8 tile rows = 1024 contiguous docids)
 SUB_DOCS = WINDOW_SIZE // NSUB
 MAX_REGS = 16  # registers of the tape kernel's program
 MAX_PROG = 64  # program length the tape kernel takes
+MAX_FLAT_SLOTS = 8  # slots a query of the flat kernel has (the executor's cap)
 
 # register-program opcodes (csrc/fusedscore.cu); rows are (op, dst, a, b)
 (OP_TOK, OP_AND, OP_OR, OP_NOT, OP_UNOT, OP_OPT, OP_SACC, OP_SFIN,
@@ -390,8 +404,11 @@ def fused_flat_score_tiles(
     _check(kmin, "kmin", torch.int32, dev)
     if flags.shape != (B, T) or kmin.shape != (B,):
         raise ValueError("flags must be (B, T) and kmin (B,)")
-    if T > 127:
-        raise ValueError("flat kernel counts at most 127 slots")
+    if not 1 <= T <= MAX_FLAT_SLOTS:
+        raise ValueError(f"the flat kernel takes 1..{MAX_FLAT_SLOTS} slots")
+    for t, name in ((tf_planes, "tf_planes"), (deleted, "deleted")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
     scores, rmax = _outputs(B, W, dev)
     if B * W:
         kernels.launch(

@@ -14,15 +14,27 @@ Source note — what it replaces and what bounds it on the H100:
   replaces ``trinity_tpu/ops/postings.py:530 materialize_freq_tiles``
   (Pallas body ``_make_kernel``/``_decode_groups``). The TPU kernel
   scattered with one-hot MXU matmuls over bf16 byte planes and summed
-  deltas with lane rolls, behind double-buffered DMA banks. On Hopper a
-  warp decodes one 128-posting block: each thread reads 4 lanes of the
-  block's 3 plane rows as one 16-byte load per row, extracts the two
-  bit-fields, and a 32-wide shuffle scan turns deltas into docids; the
-  postings are then stored straight into the tile (a term holds a doc at
-  most once, so no atomics). The kernel reads ~1.5 KiB of planes per block
-  and writes the 64 KiB tile (zeroed in-kernel), so it is bound by the
-  tile writes for sparse cells and by the plane reads plus scan latency
-  for dense ones.
+  deltas with lane rolls, behind double-buffered DMA banks. On the H100
+  the call is bound by bytes: each 64 KiB tile written once (twice that
+  with offsets), against ~1.5 KiB of planes read per 128-posting block.
+  A warp decodes one block: each thread takes 4 lanes of the block's 3
+  plane rows as 16-byte words, extracts the two bit-fields, and a 32-wide
+  shuffle scan turns deltas into docids. A thread block owns a 2048-doc
+  range of one cell (8 per cell, so a 512-cell call is 4096 blocks) and
+  builds the range's freqs (and offsets) in shared memory, zeroed first:
+  its threads load the cell's metadata rows, a row a thread, into shared
+  memory; two block-wide counts over their first/last docids give the
+  rows that meet the range (at most 18: a block holds 128 distinct docs);
+  the span of plane rows those blocks use (a few for a dense term) is
+  copied into shared memory with asynchronous 16-byte copies, all in
+  flight at once, so the block pays one memory round trip for its planes
+  rather than one per decode; then the warps decode the rows, a row a
+  warp in turn, storing their postings in the range's tile (a term holds
+  a doc at most once, so no atomics), and each 16-byte word of the range
+  is written once (a block per cell that zero-fills its tile in device
+  memory and then scatters 4-byte stores writes every tile twice). The
+  tiles can go into a caller's strided view (``out=``), so the hot-term
+  planes are filled in place.
 
 Host helpers ``pack_block_meta``, ``pad_planes`` and ``compute_cells`` and
 the layout constants are copies of the reference's (that module imports
@@ -169,7 +181,7 @@ def decode_cells(bmeta, planes, cell_start, cell_nblocks, with_offsets=False):
 
 def materialize_freq_tiles_ref(
     bmeta, planes, cell_start, cell_nblocks, window_base=None,
-    with_offsets=False,
+    with_offsets=False, out=None,
 ):
     """Plain torch version of the decode kernel (same contract as
     materialize_freq_tiles). Runs on any device."""
@@ -187,6 +199,9 @@ def materialize_freq_tiles_ref(
     tiles = torch.zeros(W * T * WINDOW_SIZE, dtype=torch.float32, device=dev)
     tiles[idx] = freq[valid].to(torch.float32)
     tiles = tiles.reshape(W, T, TILE, TILE)
+    if out is not None:
+        _check_out(out, W, T, dev)
+        tiles = out.copy_(tiles)
     if not with_offsets:
         return tiles
     offs = torch.zeros(W * T * WINDOW_SIZE, dtype=torch.int32, device=dev)
@@ -233,6 +248,18 @@ def _check(t, name, dtype, dev):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_out(out, W, T, dev):
+    """A freq destination: f32 (W, T, 128, 128) on `dev` whose tiles are
+    each contiguous (e.g. a slice of a (C, W, 128, 128) cache, transposed)."""
+    if out.dtype != torch.float32 or out.device != dev:
+        raise TypeError(f"out: expected float32 on {dev}")
+    if tuple(out.shape) != (W, T, TILE, TILE):
+        raise ValueError(f"out: shape {tuple(out.shape)}, expected "
+                         f"{(W, T, TILE, TILE)}")
+    if out.stride()[2:] != (TILE, 1):
+        raise ValueError("out: each tile must be contiguous")
+
+
 def materialize_freq_tiles(
     bmeta: torch.Tensor,  # (rows, 128) i32 (pack_block_meta)
     planes: torch.Tensor,  # (R_pad, 128) i32 bit-view of u32, padded
@@ -240,15 +267,19 @@ def materialize_freq_tiles(
     cell_nblocks: torch.Tensor,  # (W, T) i32
     window_base: torch.Tensor = None,  # (W,) i32 window ids (default arange)
     with_offsets: bool = False,
+    out: torch.Tensor = None,  # freq destination (W, T, 128, 128) f32 view
 ):
     """Returns f32[W, T, 128, 128] frequency tiles (0 = term absent); with
-    with_offsets also i32[W, T, 128, 128] hits-offset tiles.
+    with_offsets also i32[W, T, 128, 128] hits-offset tiles. The freq
+    tiles are written into `out` when given (any view whose tiles are each
+    contiguous, e.g. ``cache[i:i + T].transpose(0, 1)``) and returned.
 
     On CUDA tensors this launches the decode kernel (csrc/postings.cu); on
     CPU tensors it runs materialize_freq_tiles_ref."""
     if planes.device.type != "cuda":
         return materialize_freq_tiles_ref(
-            bmeta, planes, cell_start, cell_nblocks, window_base, with_offsets
+            bmeta, planes, cell_start, cell_nblocks, window_base,
+            with_offsets, out,
         )
     from trinity_tpu_torch.utils import kernels
 
@@ -264,7 +295,14 @@ def materialize_freq_tiles(
         raise ValueError("planes and bmeta must be (rows, 128)")
     if cell_nblocks.shape != (W, T) or window_base.shape != (W,):
         raise ValueError("cell tables must be (W, T), window_base (W,)")
-    tiles = torch.empty((W, T, TILE, TILE), dtype=torch.float32, device=dev)
+    if out is None:  # contiguous: the tile strides need no check
+        out = torch.empty((W, T, TILE, TILE), dtype=torch.float32, device=dev)
+        strides = (T * WINDOW_SIZE, WINDOW_SIZE)
+    else:
+        _check_out(out, W, T, dev)
+        strides = out.stride()[:2]
+        if out.data_ptr() % 16 or strides[0] % 4 or strides[1] % 4:
+            raise ValueError("out: every tile must be 16-byte aligned")
     offs = (
         torch.empty((W, T, TILE, TILE), dtype=torch.int32, device=dev)
         if with_offsets else None
@@ -273,6 +311,6 @@ def materialize_freq_tiles(
         kernels.launch(
             "decode", "trin_decode_tiles",
             bmeta, planes, cell_start, cell_nblocks, window_base, W, T,
-            tiles, offs,
+            out, *strides, offs,
         )
-    return (tiles, offs) if with_offsets else tiles
+    return (out, offs) if with_offsets else out

@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 # l = 64-bit int;
 # every entry point takes the CUDA stream last and returns cudaError_t.
 _SIGNATURES = {
-    "trin_decode_tiles": "pppppiipp",
+    "trin_decode_tiles": "pppppii" "pll" "p",
     "trin_flat_score": "ppppppppp" "iip" "iiii" "pp",
     "trin_tape_score": "pppppip" "piipi" "p" "iip" "iiii" "pp",
     "trin_posmask_tiles": "pppppp" "iii" "pll",
