@@ -37,7 +37,9 @@ non-zero):
    memory rate, or its f32 operations at the peak rate, the larger): K1
    on the first 8-term chunk of the hot-term planes (both output modes)
    and, with offsets, on the cells of the largest lazy phrase group (as
-   use_posmask=False plans the 18 phrases), K2 on each flat group (T = 2,
+   use_posmask=False plans the 18 phrases) and on a pruned chunk (16
+   gathered windows, one a duplicate with zeroed cells, half the queries
+   of the largest flat pruned group resolved), K2 on each flat group (T = 2,
    4, 8) and on one query alone (search()'s B = 1), K3 on the OR-of-AND
    group, K4 on
    the first 8-term chunk of the posmask hot cache and on the bigram and
@@ -52,13 +54,28 @@ non-zero):
 7. compound phrases: 4 queries built from the bench's phrase pairs
    ("a b" c, "a b" OR c, c NOT "a b", ("a b" c) OR d) on the card equal
    the port's CPU executor on the same segment (the baseline engine has
-   no compound-phrase syntax).
+   no compound-phrase syntax);
+8. the collection: generation 1 is the bench segment, generation 2 holds
+   65,536 documents (57,344 updating base ids, 8,192 new ids), generation 3
+   erases 8,192 further base ids and holds no document (build_generations;
+   the generations and their merge are cached under the build directory).
+   IndexSourcesCollection(device="cuda") must equal one executor over the
+   merged segment searched with the collection's statistics on all 120
+   queries (a), in match_ids on the 18 phrases and the 8 rarest boolean
+   queries (b); search(doc_set=) on the base source must equal the CPU
+   executor on 4 rare queries (c); search_pruned_batch must equal
+   search_batch on the 102 boolean queries, on a base executor and on the
+   collection, with its rounds printed beside a full scan's (d); under a
+   byte budget below the searchable sources' segment bytes two passes must
+   evict and stay equal to (a) (e); every kernel must launch in the phase
+   (f). It prints the collection's pipelined QPS and search() p50/p99, the
+   merge's seconds and each source's device bytes.
 
 The last lines: the check that no trinity_tpu module was loaded, one JSON
 object {"kernels": [...]}, the nvidia-smi line (name, power limit), and
 {"ok": true, "device": {...}}.
 
-With --profile it runs phases 1-3 and then, in place of 4-7, the
+With --profile it runs phases 1-3 and then, in place of 4-8, the
 measurement behind PERF.md's "Where the time goes": the host split of a
 blocking batch, the device busy share of pipelined batches and their top
 kernels (torch.profiler), and each group's device time by function (CUDA
@@ -422,6 +439,16 @@ def kernel_cases(ex, queries):
         lambda a=a: po.materialize_freq_tiles_ref(*a, with_offsets=True),
         lambda a=a: po.decode_bytes(a[0], a[2], a[3], True),
         lambda: ""))
+    chunk = pruned_chunk(ex, queries)
+    if chunk is not None:  # an older tree (--turns) has no pruned search
+        what, selp, csel, nsel = chunk
+        a = (ex.bmeta, ex.planes, put(csel), put(nsel), put(selp))
+        cases.append((
+            "decode", what,
+            lambda a=a: po.materialize_freq_tiles(*a),
+            lambda a=a: po.materialize_freq_tiles_ref(*a),
+            lambda a=a: po.decode_bytes(a[0], a[2], a[3], False),
+            lambda: ""))
     groups = ex.plan_batch(queries)
     flats = sorted((g for g in groups if g.kind == "flat"),
                    key=lambda g: -g.B * g.T)
@@ -471,6 +498,37 @@ def kernel_cases(ex, queries):
             lambda a=args: f"{position_elements(*a[:2], *a[4:6])} position "
                            f"elements"))
     return cases
+
+
+PRUNED_CHUNK = 16  # search_pruned_batch's default chunk_windows
+
+
+def pruned_chunk(ex, queries):
+    """The decode kernel's input on a pruned chunk (exec/pruned.py), or
+    None when the tree has no pruned search: the largest flat group that
+    search_pruned_batch forms from the boolean queries, its last
+    PRUNED_CHUNK - 1 windows in bound order padded by a duplicate of one of
+    them (cells zeroed), every other query resolved (cells zeroed). Returns
+    (description, window_base, cell starts, cell counts)."""
+    import numpy as np
+
+    try:
+        from trinity_tpu_torch.exec import pruned
+    except ImportError:
+        return None
+    groups, _ = pruned.plan_pruned(ex, ex._parse(queries), "bm25")
+    g = max((g for g in groups if g.key[0] == "flat"),
+            key=lambda g: g.B * g.T)
+    resolved = np.zeros(g.B, bool)
+    resolved[1::2] = True  # every other query (and the padding rows)
+    resolved[len(g.members):] = True
+    c0 = ex.seg.n_windows - (PRUNED_CHUNK - 1)
+    selp, csel, nsel = pruned.chunk_cells(g, c0, PRUNED_CHUNK, resolved)
+    what = (f"pruned chunk: M={len(selp)} gathered windows "
+            f"({len(set(selp.tolist()))} distinct), B={g.B} with "
+            f"{len(g.members)} queries ({int(resolved[:len(g.members)].sum())}"
+            f" resolved), T={g.T}, {int(nsel.sum())} blocks, offsets False")
+    return what, selp, csel, nsel
 
 
 def largest_lazy_group(seg, queries):
@@ -631,6 +689,10 @@ def phase_turns(parent):
                     xs)
     for (table, row), by in runs.items():
         med = {tag: float(np.median(xs)) for tag, xs in by.items()}
+        if "parent" not in med:  # a case the parent's port cannot run
+            log(f"[turns] {table} {row}: this {med['this']:.4f}; medians of "
+                f"{len(by['this'])}")
+            continue
         log(f"[turns] {table} {row}: parent {med['parent']:.4f}, this "
             f"{med['this']:.4f} (parent/this {med['parent'] / med['this']:.2f}"
             f"); medians of {len(by['this'])} each")
@@ -736,7 +798,7 @@ def phase_slice(seg, queries, base_topk, phrase):
                                           "posmask")):
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
     nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
-    log(f"[slice] device bytes {ex.device_bytes} (segment "
+    log(f"[slice] device bytes {ex.device_bytes_held} (segment "
         f"{nb(ex.bmeta, ex.planes)}, positions {nb(ex.hit_pw, ex.hit_off)}, "
         f"hot planes {nb(ex.tf_planes)} for {len(ex._hot)} terms, posmask "
         f"cache {nb(ex.pos_planes)} for {len(ex._pos_hot)} terms, PW "
@@ -820,6 +882,282 @@ def phase_compound(seg, queries, phrase):
         f"(hits {[len(g) for g in out[0]]}): {qs}")
     if sum(1 for g in out[0] if g) < 3:
         raise RuntimeError("compound queries returned nothing")
+
+
+COLL_UPDATES = 57_344  # generation 2: documents updating base ids
+COLL_NEW = 8_192  # generation 2: new documents, ids from bench.N_DOCS up
+COLL_ERASED = 8_192  # generation 3 (no documents): erased base ids
+
+
+def build_generations():
+    """Phase 8's newer generations and merged segment, built by the port
+    and persisted under bench._cache_dir()/collection (the base segment,
+    generation 1, is the bench corpus). default_rng(bench.SEED + 2) draws
+    COLL_UPDATES + COLL_ERASED base ids without replacement; generation 2
+    holds documents for the first COLL_UPDATES of them and for COLL_NEW
+    new ids, their tokens bench's Zipf draw with bench's length range,
+    indexed with bulk_index_ids, then erase(id) for each updated id (what
+    update() records); generation 3 erases the other COLL_ERASED ids and
+    holds no document. The merged segment is
+    MergeCandidatesCollection.merge(keep_updated_ids=False) of all three;
+    its seconds go to merge.json."""
+    import numpy as np
+
+    import bench
+    from trinity_tpu_torch import (
+        MergeCandidatesCollection,
+        SegmentData,
+        SegmentIndexSession,
+    )
+
+    root = os.path.join(bench._cache_dir(), "collection")
+    base = SegmentData.load(os.path.join(bench._cache_dir(), "seg"))
+    rng = np.random.default_rng(bench.SEED + 2)
+    picked = rng.choice(bench.N_DOCS, COLL_UPDATES + COLL_ERASED,
+                        replace=False)
+    upd, erased = picked[:COLL_UPDATES], picked[COLL_UPDATES:]
+    ids = np.sort(np.concatenate([upd, bench.N_DOCS + np.arange(COLL_NEW)]))
+    zipf = 1.0 / np.arange(1, bench.VOCAB + 1) ** bench.ZIPF_S
+    zipf /= zipf.sum()
+    lengths = rng.integers(bench.DOC_LEN[0], bench.DOC_LEN[1], size=len(ids))
+    bounds = np.zeros(len(ids) + 1, np.int64)
+    np.cumsum(lengths, out=bounds[1:])
+    tokens = rng.choice(bench.VOCAB, size=int(bounds[-1]), p=zipf)
+    sess = SegmentIndexSession()
+    sess.bulk_index_ids(ids, tokens, bounds,
+                        [f"w{i}" for i in range(bench.VOCAB)])
+    for d in upd:
+        sess.erase(int(d))
+    gen2 = sess.commit()
+    sess = SegmentIndexSession()
+    for d in erased:
+        sess.erase(int(d))
+    gen3 = sess.commit()
+    mc = MergeCandidatesCollection()
+    for gen, s in enumerate((base, gen2, gen3), start=1):
+        mc.insert(s, gen)
+    t0 = time.perf_counter()
+    merged = mc.merge(keep_updated_ids=False)
+    seconds = time.perf_counter() - t0
+    for name, s in (("gen2", gen2), ("gen3", gen3), ("merged", merged)):
+        s.persist(os.path.join(root, name))
+    with open(os.path.join(root, "merge.json"), "w") as f:
+        json.dump({"seconds": seconds}, f)
+
+
+def load_generations():
+    """(generation 2, generation 3, merged segment, merge seconds), built
+    on first use (build_generations, in a subprocess) under the build
+    directory."""
+    import bench
+    from trinity_tpu_torch import SegmentData
+
+    root = os.path.join(bench._cache_dir(), "collection")
+    if not os.path.exists(os.path.join(root, "merge.json")):
+        code = ("import bench, chip_smoke; "
+                f"bench.CACHE_ROOT = {bench.CACHE_ROOT!r}; "
+                "chip_smoke.build_generations(); "
+                "assert not chip_smoke.reference_modules(), "
+                "chip_smoke.reference_modules()")
+        subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
+    with open(os.path.join(root, "merge.json")) as f:
+        seconds = json.load(f)["seconds"]
+    return (*(SegmentData.load(os.path.join(root, n))
+              for n in ("gen2", "gen3", "merged")), seconds)
+
+
+def same_results(what, queries, got, want, exact=False):
+    """Top-k lists equal: ids exactly, scores within 2 ulp (or bit-equal
+    when `exact`); raises on a difference. Returns how many lists are
+    bit-equal."""
+    import numpy as np
+
+    equal = 0
+    for q, g, w in zip(queries, got, want):
+        if [r.doc_id for r in g] != [r.doc_id for r in w]:
+            raise RuntimeError(f"{what} {q!r}: ids {[r.doc_id for r in g]} "
+                               f"!= {[r.doc_id for r in w]}")
+        gs, ws = [r.score for r in g], [r.score for r in w]
+        equal += gs == ws
+        if exact and gs != ws:
+            raise RuntimeError(f"{what} {q!r}: scores {gs} != {ws}")
+        np.testing.assert_allclose(gs, ws, rtol=RTOL, atol=0, err_msg=q)
+    return equal
+
+
+def full_scan_rounds(ex, queries):
+    """Chunk rounds search_pruned_batch would take on `ex` if no query
+    resolved early: each group's windows over PRUNED_CHUNK."""
+    from trinity_tpu_torch.exec import pruned
+
+    groups, _ = pruned.plan_pruned(ex, ex._parse(queries), "bm25")
+    return len(groups) * -(-ex.seg.n_windows // PRUNED_CHUNK)
+
+
+def phase_collection(seg, queries, phrase):
+    """Phase 8: a three-generation collection on the card (the bench
+    segment, build_generations' updates and new documents, and its
+    erase-only generation) against one executor over the merged segment
+    searched with the collection's statistics; match_ids, doc_set, pruned
+    search and residency under a budget."""
+    import numpy as np
+    import torch
+
+    from trinity_tpu_torch import (
+        Executor,
+        IndexSourcesCollection,
+        configure,
+        get_config,
+        get_metrics,
+    )
+    from trinity_tpu_torch.exec.residency import get_residency
+    from trinity_tpu_torch.utils import kernels
+
+    t0 = time.perf_counter()
+    gen2, gen3, merged, merge_s = load_generations()
+    log(f"[collection] generation 2: {gen2.n_docs} docs, "
+        f"{len(gen2.updated_ids)} updated ids; generation 3: {gen3.n_docs} "
+        f"docs, {len(gen3.updated_ids)} erased ids; merged segment "
+        f"{merged.n_docs} docs; merge {merge_s:.2f}s; ready in "
+        f"{time.perf_counter() - t0:.1f}s")
+    bool_qs = [q for q, p in zip(queries, phrase) if not p]
+    phrase_qs = [q for q, p in zip(queries, phrase) if p]
+    kernels.reset_launches()
+    coll = IndexSourcesCollection(device="cuda")
+    for gen, s in enumerate((seg, gen2, gen3), start=1):
+        coll.add_segment(s, gen)
+    coll.commit()
+    srcs = [s.executor() for s in coll.sources]  # newest first
+    base_ex = srcs[-1]
+    mex = Executor(merged, "cuda")
+    stats = dict(stats=coll.aggregated_stats(), df_of=coll.doc_freq)
+
+    # (a) the collection equals the merged segment with its statistics
+    t0 = time.perf_counter()
+    got = coll.search_batch(queries, k=10)
+    want = mex.search_batch(queries, k=10, **stats)
+    equal = same_results("collection", queries, got, want)
+    newer = set(gen2.doc_map.tolist())
+    fresh = sum(r.doc_id in newer for g in got for r in g)
+    log(f"[collection] (a) search_batch of {len(queries)} queries equals the "
+        f"merged segment's: {len(queries)}/{len(queries)} ({equal} "
+        f"bit-equal; {fresh} of the hits from generation 2) in "
+        f"{time.perf_counter() - t0:.2f}s")
+    if sum(1 for g in got if g) < len(queries) // 2:
+        raise RuntimeError("collection: most queries returned nothing")
+
+    # (b) match_ids: the 18 phrases and the 8 rarest boolean queries
+    counts = [len(mex.match_ids(q)) for q in bool_qs]
+    by_count = [bool_qs[i] for i in np.argsort(counts, kind="stable")
+                if counts[i] > 0]
+    sizes = []
+    for q in phrase_qs + by_count[:8]:
+        a, b = coll.match_ids(q), mex.match_ids(q)
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"match_ids {q!r}: {len(a)} ids on the "
+                               f"collection, {len(b)} on the merged segment")
+        sizes.append(len(a))
+    log(f"[collection] (b) match_ids equal on {len(sizes)}/{len(sizes)} "
+        f"queries (18 phrases, 8 rarest boolean): {sizes} ids")
+
+    # (c) doc_set on the base source (its registry installed) against the
+    # CPU executor (no hot-term planes: they only spare decodes)
+    saved = get_config().hot_cache_bytes
+    configure(hot_cache_bytes=0)
+    try:
+        cpu = Executor(seg, "cpu")
+    finally:
+        configure(hot_cache_bytes=saved)
+    cpu.set_masked_local_docs(np.flatnonzero(base_ex._deleted_np))
+    done = []
+    for q in by_count:  # the rarest with 4 matches or more in the base
+        ids = base_ex.match_ids(q)
+        if len(ids) < 4:
+            continue
+        doc_set = ids[::2]
+        g = base_ex.search(q, k=10, doc_set=doc_set)
+        same_results("doc_set", [q], [g], [cpu.search(q, k=10,
+                                                      doc_set=doc_set)])
+        if not g or not {r.doc_id for r in g} <= set(doc_set.tolist()):
+            raise RuntimeError(f"doc_set {q!r}: hits outside the set or none")
+        done.append((q, len(doc_set), len(g)))
+        if len(done) == 4:
+            break
+    if len(done) < 4:
+        raise RuntimeError(f"doc_set: only {len(done)} rare queries")
+    del cpu
+    log(f"[collection] (c) search(doc_set=) on the card equals the CPU "
+        f"executor on 4/4 rare queries (query, set size, hits): {done}")
+
+    # (d) pruned search equals search_batch on the base executor and on
+    # the collection
+    bex = Executor(seg, "cuda")
+    for name, run, full in (
+            ("base executor", bex, full_scan_rounds(bex, bool_qs)),
+            ("collection", coll, sum(full_scan_rounds(ex, bool_qs)
+                                     for ex in srcs if ex.seg.n_docs))):
+        dense = run.search_batch(bool_qs, k=10)
+        rounds = get_metrics().snapshot().get("pruned.rounds", {}).get(
+            "value", 0)
+        t0 = time.perf_counter()
+        pruned = run.search_pruned_batch(bool_qs, k=10,
+                                         chunk_windows=PRUNED_CHUNK)
+        dt = time.perf_counter() - t0
+        rounds = get_metrics().snapshot()["pruned.rounds"]["value"] - rounds
+        equal = same_results(f"pruned ({name})", bool_qs, pruned, dense)
+        log(f"[collection] (d) {name}: search_pruned_batch equals "
+            f"search_batch on {len(bool_qs)}/{len(bool_qs)} boolean queries "
+            f"({equal} bit-equal) in {dt:.3f}s; pruned.rounds {rounds} "
+            f"against {full} for a full scan ({PRUNED_CHUNK}-window chunks)")
+    del bex, mex
+    torch.cuda.empty_cache()
+
+    # end-to-end numbers of the collection, as phase 5's
+    m = slice_metrics(coll, queries, phrase)
+    med = lambda k: float(np.median(m[k]))
+    log(f"[collection] QPS {med('mix QPS'):.2f} (loops "
+        f"{', '.join(f'{x:.2f}' for x in m['mix QPS'])}), pipelined "
+        f"launch_batch/finish_batch over the sources, {len(queries)} "
+        f"queries x 5 reps")
+    for name in ("boolean", "phrase"):
+        log(f"[collection] {name}: QPS {med(f'{name} QPS'):.2f}; search() "
+            f"p50 {med(f'{name} p50 ms'):.3f} ms, p99 "
+            f"{med(f'{name} p99 ms'):.3f} ms (median of 3 passes)")
+    for src, ex in zip(coll.sources, srcs):
+        log(f"[collection] generation {src.generation}: {src.seg.n_docs} "
+            f"docs, segment arrays {ex.device_bytes} bytes, on the card now "
+            f"{ex.device_bytes_held} bytes")
+
+    # (e) a budget under the two searchable sources' segment bytes: two
+    # passes evict and upload again, and the results stay (a)'s
+    mgr = get_residency()
+    ev0, up0 = mgr.evictions, mgr.uploads
+    budget = sum(ex.device_bytes for ex in srcs if ex.seg.n_docs) - 1
+    saved = get_config().hbm_budget_bytes
+    configure(hbm_budget_bytes=budget)
+    try:
+        for ex in srcs:
+            ex.evict()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            same_results("residency", queries,
+                         coll.search_batch(queries, k=10), got, exact=True)
+        dt = time.perf_counter() - t0
+    finally:
+        configure(hbm_budget_bytes=saved)
+    if mgr.evictions == ev0:
+        raise RuntimeError("residency: the budget evicted nothing")
+    log(f"[collection] (e) budget {budget} bytes: 2 passes in {dt:.2f}s, "
+        f"{mgr.evictions - ev0} evictions, {mgr.uploads - up0} uploads, "
+        f"results equal (a)'s")
+
+    # (f) every kernel of the path launched in this phase
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    log(f"[collection] (f) kernel launches in the phase: {launches}")
+    if not all(launches[k] > 0 for k in ("decode", "flat", "tape",
+                                          "posmask")):
+        raise RuntimeError(f"a kernel of the path never launched: {launches}")
 
 
 # device functions the executor calls, timed one by one by --profile
@@ -911,7 +1249,7 @@ def phase_profile(seg, queries, phrase):
             t1 = time.perf_counter()
             outs = [ex.run_group(g, 10, "bm25") for g in groups]
             t2 = time.perf_counter()
-            ex.finish_batch((groups, outs, len(qs), 10, "bm25"))
+            ex.finish_batch((groups, outs, len(qs), 10, "bm25", t2))
             split.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
         plan, launch, finish = np.median(np.array(split) * 1e3, axis=0)
         log(f"[profile] {name} ({len(qs)} queries), one blocking batch: "
@@ -965,6 +1303,7 @@ def main():
     launches = phase_slice(seg, queries, base_topk, phrase)
     phase_lazy(seg, queries, base_topk, phrase)
     phase_compound(seg, queries, phrase)
+    phase_collection(seg, queries, phrase)
     loaded = reference_modules()
     log(f"[imports] modules of the JAX package loaded in this run: {loaded}")
     if loaded:

@@ -541,3 +541,69 @@ def test_tape_kernel_register_programs(dev, seg, hot_cfg, n_used):
         assert torch.isfinite(want[0]).any()
     if n_used == 8:
         assert max(nregs) > 8  # the 16-register kernel ran
+
+
+def test_decode_kernel_pruned_chunk(dev, seg):
+    """K1 at the pruned search's chunk shape: gathered ascending windows,
+    the short last chunk padded by a duplicate of its edge window with
+    zeroed cells, and a resolved query's cells zeroed (exec/pruned.py's
+    chunk_cells on a flat group, chunk_windows=2 over 3 windows): bit-equal
+    to the plain version, and zero where the cells are."""
+    from trinity_tpu_torch.exec.planning import _plan_for_text
+    from trinity_tpu_torch.exec.pruned import chunk_cells, plan_pruned
+
+    ex = Executor(seg, dev)
+    plans = [_plan_for_text(q)[1] for q in ("t0 t1", "t2 t5", "t3 t400")]
+    (g,), _ = plan_pruned(ex, plans, "bm25")
+    resolved = np.array([True, False, False, True])
+    for c0 in (0, 2):
+        selp, csel, nsel = chunk_cells(g, c0, 2, resolved)
+        args = [torch.from_numpy(a).to(dev) for a in (csel, nsel, selp)]
+        got = materialize_freq_tiles(ex.bmeta, ex.planes, *args)
+        want = materialize_freq_tiles_ref(ex.bmeta, ex.planes, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert not got[:, : g.T].any() and got.any()
+    assert selp[0] == selp[1] and not got[1].any()  # the padded chunk
+
+
+def test_collection_cuda_equals_cpu(dev, seg, hot_cfg):
+    """A three-generation collection (the base segment, 4,000 updated or
+    new documents, an erase-only generation) on the card equals its CPU
+    twin: search_batch, search_pruned_batch and match_ids."""
+    from trinity_tpu_torch import IndexSourcesCollection
+
+    rng = np.random.default_rng(3)
+    upd = rng.choice(seg.doc_map, 3500, replace=False)
+    ids = np.sort(np.concatenate([upd[:3000], 10**6 + np.arange(1000)]))
+    bounds = np.zeros(len(ids) + 1, np.int64)
+    np.cumsum(rng.integers(3, 12, size=len(ids)), out=bounds[1:])
+    toks = rng.integers(0, 60, size=int(bounds[-1]))
+    sess = SegmentIndexSession()
+    sess.bulk_index_ids(ids, toks, bounds, [f"t{i}" for i in range(60)])
+    for d in upd[:3000]:
+        sess.erase(int(d))
+    gen2 = sess.commit()
+    sess = SegmentIndexSession()
+    for d in upd[3000:]:
+        sess.erase(int(d))
+    gen3 = sess.commit()
+    out = []
+    for d in (dev, "cpu"):
+        coll = IndexSourcesCollection(device=d)
+        for gen, s in enumerate((seg, gen2, gen3), start=1):
+            coll.add_segment(s, gen)
+        coll.commit()
+        out.append((coll.search_batch(QUERIES, k=10),
+                    coll.search_pruned_batch(QUERIES, k=10),
+                    [coll.match_ids(q) for q in QUERIES[:4]]))
+    (gb, gp, gm), (wb, wp, wm) = out
+    for q, g, p, w in zip(QUERIES, gb, gp, wb):
+        assert [r.doc_id for r in g] == [r.doc_id for r in w], q
+        np.testing.assert_allclose([r.score for r in g],
+                                   [r.score for r in w], rtol=RTOL, atol=0)
+        assert [(r.doc_id, r.score) for r in p] == [
+            (r.doc_id, r.score) for r in g], q
+    for a, b in zip(gm, wm):
+        np.testing.assert_array_equal(a, b)
+    assert any(set(r.doc_id for r in res) & set(ids.tolist()) for res in gb)

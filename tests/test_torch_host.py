@@ -10,6 +10,12 @@
 - The two packages' Config() defaults and limits are equal.
 - chip_smoke's corpus build, at a small N_DOCS / VOCAB, writes the same
   docs.bin bytes and the same segment as bench._build_corpus_fresh.
+- The whole-module copies (utils/timings.py, utils/metrics.py,
+  index/merge.py) differ from the originals only in the package their
+  imports name; exec/planning.py's copies of ExecFlags, _flatten_tape and
+  the pruned search's _tape_matches_empty / _tape_window_bounds equal the
+  originals' source, and the two bound helpers give the reference's values
+  on a 2-window segment.
 """
 
 import dataclasses
@@ -171,6 +177,84 @@ def test_chip_smoke_corpus_equals_bench_corpus(monkeypatch, tmp_path):
     assert len(out["port"][0]) > 5_000 * 40 * 4
     assert_same_segment(PortSegmentData.load(out["port"][1]),
                         RefSegmentData.load(out["bench"][1]))
+
+
+def _port_text(text):
+    """A port copy's source as its original would read: without the
+    copy's first-line note, the port's package named as the original."""
+    first, rest = text.split("\n", 1)
+    assert first.startswith("# Copy of trinity_tpu/"), first
+    return rest.replace("trinity_tpu_torch", "trinity_tpu")
+
+
+@pytest.mark.parametrize("rel", ["utils/timings.py", "utils/metrics.py",
+                                 "index/merge.py"])
+def test_module_copies_equal_originals(rel):
+    """The port's copies of whole host modules differ from the originals
+    only in the package their imports name."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "trinity_tpu_torch", rel)) as f:
+        got = _port_text(f.read())
+    with open(os.path.join(root, "trinity_tpu", rel)) as f:
+        assert got == f.read()
+
+
+@pytest.mark.parametrize("name", ["ExecFlags", "_tape_matches_empty",
+                                  "_tape_window_bounds", "_flatten_tape"])
+def test_planning_helpers_equal_originals(name):
+    """exec/planning.py's copies of the executor's helpers, by source."""
+    import inspect
+
+    import trinity_tpu.exec.executor as ref_executor
+    import trinity_tpu_torch.exec.planning as planning
+
+    got = inspect.getsource(getattr(planning, name))
+    assert got.replace("trinity_tpu_torch", "trinity_tpu") == (
+        inspect.getsource(getattr(ref_executor, name)))
+
+
+TAPES = ["t0", "t0 t1", "t0 OR <t1>", "<t1> OR t0", "t0 NOT t1", "t0 OR NOT t1",
+         "[t0, t1, t2]/2", "(t0 t1) OR (t2 t3)", "(t0 OR t3) t5",
+         "t0 ([t1,t5] OR t13)", "(t3 OR t9) NOT (t0 t1)", "t0 <t2>"]
+
+
+def test_pruned_bounds_equal_reference():
+    """_tape_matches_empty and _tape_window_bounds (f32 sums in tape order)
+    give the reference's values on a 2-window segment."""
+    from trinity_tpu.exec import executor as ref_executor
+    from trinity_tpu.models.similarity import SIMILARITIES as REF_SIM
+    from trinity_tpu.ops.postings import compute_cells as ref_cells
+    from trinity_tpu_torch.exec import planning
+    from trinity_tpu_torch.models.similarity import SIMILARITIES
+    from trinity_tpu_torch.ops.postings import compute_cells
+
+    rng = np.random.default_rng(5)
+    n_docs = 20_000
+    bounds = np.zeros(n_docs + 1, np.int64)
+    np.cumsum(rng.integers(1, 12, size=n_docs), out=bounds[1:])
+    zipf = 1.0 / np.arange(1, 41)
+    toks = rng.choice(40, size=int(bounds[-1]), p=zipf / zipf.sum())
+    seg, ref_seg = bulk_pair(np.arange(n_docs), toks, bounds,
+                             [f"t{i}" for i in range(40)])
+    for q in TAPES:
+        plan = port_compile(port_parse(q).root)
+        empty = planning._tape_matches_empty(plan.tape)
+        assert empty == ref_executor._tape_matches_empty(plan.tape), q
+        if empty:
+            continue
+        tids = [seg.term_id(t) for t in plan.term_texts]
+        w = rng.random(len(plan.weight_terms)).astype(np.float32) * 3
+        for scorer in ("bm25", "tfidf", "trivial"):
+            got = planning._tape_window_bounds(
+                seg, plan.tape, *compute_cells(seg, tids), w,
+                SIMILARITIES[scorer], col=lambda s: s)
+            want = ref_executor._tape_window_bounds(
+                ref_seg, plan.tape, *ref_cells(ref_seg, tids), w,
+                REF_SIM[scorer], col=lambda s: s)
+            for g, x in zip(got, want):
+                assert g.dtype == x.dtype
+                np.testing.assert_array_equal(g, x, err_msg=q)
+    assert seg.n_windows == 2
 
 
 PTXAS_LOG = """\

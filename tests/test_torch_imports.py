@@ -4,7 +4,9 @@ never hides a missing device.
 - In a subprocess where ``import jax`` fails (``sys.modules["jax"] =
   None``) and a meta-path finder refuses ``trinity_tpu`` and every
   ``trinity_tpu.*``, every module of the port imports and a tiny CPU
-  search runs, phrases included (posmask, lazy and compound paths); no
+  search runs, phrases included (posmask, lazy and compound paths), and
+  so do a two-generation collection (search, pruned search, match_ids
+  through ``exec_query``), the merge, ``doc_set`` and the metrics; no
   ``trinity_tpu`` module is loaded. Only then is the finder removed and the
   oracle (``trinity_tpu.oracle``, with the JAX package's parser) imported,
   and the results must agree with it.
@@ -65,6 +67,33 @@ qs = ("a c", "a OR d", "c NOT b", "(a b) OR (c d)", '"a b"', '"b c" OR d',
 got = {q: [r.doc_id for r in ex.search(q, k=3)] for q in qs}
 configure(use_posmask=False)
 lazy = [r.doc_id for r in Executor(ex.seg, device="cpu").search('"a b"')]
+configure(use_posmask=True)
+# the collection, the merge, match_ids, doc_set and pruned search
+from trinity_tpu_torch import (ExecFlags, IndexSourcesCollection,
+                               MergeCandidatesCollection, exec_query,
+                               get_metrics)
+sess = SegmentIndexSession()
+p = sess.begin(2)
+for pos, t in enumerate("a d".split(), start=1):
+    p.insert(t, pos)
+sess.update(p)
+sess.erase(4)
+newer = sess.commit()
+coll = IndexSourcesCollection(device="cpu").add_segment(ex.seg, 1)
+coll = coll.add_segment(newer, 2).commit()
+mc = MergeCandidatesCollection()
+mc.insert(ex.seg, 1)
+mc.insert(newer, 2)
+merged = Executor(mc.merge(keep_updated_ids=False), device="cpu")
+stats = dict(stats=coll.aggregated_stats(), df_of=coll.doc_freq)
+coll_hits = [(r.doc_id, r.score) for r in coll.search("a OR d", k=5)]
+assert coll_hits == [(r.doc_id, r.score)
+                     for r in merged.search("a OR d", k=5, **stats)]
+assert coll_hits == [(r.doc_id, r.score)
+                     for r in coll.search_pruned("a OR d", k=5)]
+assert list(exec_query("a", coll, flags=ExecFlags.DOCUMENTS_ONLY)) == [1, 2, 3]
+assert list(ex.match_ids("a", doc_set=[1, 4])) == [1, 4]
+assert get_metrics().snapshot()["pruned.rounds"]["value"] > 0
 loaded = [m for m in sys.modules
           if m == "trinity_tpu" or m.startswith("trinity_tpu.")]
 assert not loaded, loaded
@@ -118,6 +147,9 @@ def test_port_sources_import_no_jax_and_no_reference_ops():
              if f.endswith(".py")
              and "_build" not in os.path.relpath(d, pkg).split(os.sep)]
     assert len(files) >= 25
+    rel = {os.path.relpath(p, pkg) for p in files}
+    assert {"exec/pruned.py", "exec/residency.py", "index/source.py",
+            "index/merge.py", "utils/metrics.py", "utils/timings.py"} <= rel
     for path in files:
         for n in _imported_names(path):
             assert not _refused(n), (path, n)

@@ -1,8 +1,14 @@
 """trinity_tpu_torch — the PyTorch/CUDA port of trinity_tpu.
 
-It ports ranked search on one segment (boolean AND / OR / NOT / k-of-n /
-OR-of-AND and exact phrases, BM25 / TF-IDF / Trivial top-k) to torch, with
-hand-written CUDA kernels for the H100 (``csrc/``). It stands alone: the
+It ports search to torch, with hand-written CUDA kernels for the H100
+(``csrc/``): ranked top-k (boolean AND / OR / NOT / k-of-n / OR-of-AND and
+exact phrases, BM25 / TF-IDF / Trivial), DocumentsOnly ``match_ids``,
+``doc_set`` restriction and block-max pruned search on one segment; a
+collection of segment generations (``IndexSourcesCollection``: newer
+generations mask the documents they update or erase in older ones,
+collection-wide statistics, one merged top-k) and segment merge
+(``MergeCandidatesCollection``); segment arrays kept on the card under a
+byte budget (``exec/residency.py``). It stands alone: the
 host code — config, indexing and the segment format, the query language,
 plan compilation, weights — is the port's own copy of the JAX package's
 JAX-free modules, in the same layout (``config.py``, ``index/``,
@@ -27,20 +33,47 @@ Quick start::
 from trinity_tpu_torch.config import configure, get_config
 from trinity_tpu_torch.index.builder import SegmentIndexSession
 from trinity_tpu_torch.index.format import SegmentData
+from trinity_tpu_torch.index.merge import MergeCandidatesCollection, Retention
+from trinity_tpu_torch.index.source import IndexSource, IndexSourcesCollection
 from trinity_tpu_torch.query.parser import parse_query
 from trinity_tpu_torch.exec.executor import (
+    ExecFlags,
     Executor,
     SearchResult,
     state_from_numpy,
 )
+from trinity_tpu_torch.utils.metrics import get_metrics
+
+
+def exec_query(query, source, k=10, scorer="bm25",
+               flags=ExecFlags.ACCUMULATED_SCORE_SCHEME, device="cuda"):
+    """The reference's exec_query facade (exec.h:50-52): `source` is a
+    SegmentData (searched by a new Executor on `device`), an Executor or
+    an IndexSourcesCollection. DOCUMENTS_ONLY returns match_ids."""
+    if isinstance(source, IndexSourcesCollection):
+        if flags & ExecFlags.DOCUMENTS_ONLY:
+            return source.match_ids(query)
+        return source.search(query, k=k, scorer=scorer)
+    ex = source if isinstance(source, Executor) else Executor(source, device)
+    if flags & ExecFlags.DOCUMENTS_ONLY:
+        return ex.match_ids(query)
+    return ex.search(query, k=k, scorer=scorer)
+
 
 __all__ = [
+    "ExecFlags",
     "Executor",
+    "IndexSource",
+    "IndexSourcesCollection",
+    "MergeCandidatesCollection",
+    "Retention",
     "SearchResult",
     "SegmentData",
     "SegmentIndexSession",
     "configure",
+    "exec_query",
     "get_config",
+    "get_metrics",
     "parse_query",
     "state_from_numpy",
 ]

@@ -1,7 +1,14 @@
 """Query executor on one segment: boolean and phrase BM25/TF-IDF/Trivial top-k.
 
 Counterpart of ``trinity_tpu/exec/executor.py`` for ``search`` /
-``search_batch`` / ``launch_batch`` / ``finish_batch``. Host planning is
+``search_batch`` / ``launch_batch`` / ``finish_batch`` / ``search_many`` /
+``launch`` / ``finish`` (AccumulatedScoreScheme), ``match_ids``
+(DocumentsOnly) and, through ``exec/pruned.py``, ``search_pruned`` /
+``search_pruned_batch``. Every entry point takes the reference's
+collection statistics (``stats``, ``df_of``: the weights of a collection
+of segments) and ``search`` / ``match_ids`` an app-id ``doc_set``. The
+segment arrays are uploaded on first use through the residency manager
+(``exec/residency.py``) and may be evicted under its budget. Host planning is
 the reference's, in the port's own copies (``exec/planning.py``:
 ``_plan_for_text``, ``_flatten_tape``, ``_pad_T``, ``_pick_bucket``, the
 phrase C/C2 buckets; ``config.batch_buckets``); the device side is torch
@@ -34,12 +41,23 @@ never wait for the device, so ``launch_batch`` can overlap the previous
 batch; groups that verify positions synchronise to compact the live
 candidates (and the host routes to copy them). ``finish_batch`` copies the
 ids and scores back. Results rank by score desc, local docid asc.
+
+``match_ids`` plans its query as a batch of one and reads the match from
+the group's score tiles (-inf outside it): K2 / K3 for the boolean kinds,
+K1 and the tape in torch for the dense kind, the posmask path for pure
+phrases (the compound path when posmask is off), the compound path for
+phrases inside trees. Counters (``utils/metrics.py``) and spans
+(``utils/timings.py``) carry the reference's names: ``search.queries``,
+``search.batch_latency``, ``phrase.host_verify``,
+``phrase.dense_fallback``; ``exec.search``, ``exec.prepare``,
+``exec.device``.
 Phrase groups are not padded to a batch bucket: eager torch compiles
 nothing per shape.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
@@ -49,6 +67,7 @@ import torch
 
 from trinity_tpu_torch.config import get_config
 from trinity_tpu_torch.exec.planning import (
+    ExecFlags,
     SearchResult,
     _flatten_tape,
     _pad_T,
@@ -59,12 +78,14 @@ from trinity_tpu_torch.exec.planning import (
     _pick_c2,
     _plan_for_text,
 )
+from trinity_tpu_torch.exec.pruned import search_pruned_batch
 from trinity_tpu_torch.exec.phrases import (
     collect_phrases,
     fcap_bucket,
     verify_phrase_candidates,
     verify_phrases_device,
 )
+from trinity_tpu_torch.exec.residency import get_residency
 from trinity_tpu_torch.index.format import SegmentData
 from trinity_tpu_torch.limits import TILE, WINDOW_SIZE
 from trinity_tpu_torch.models.similarity import SIMILARITIES, score_tile
@@ -97,13 +118,15 @@ from trinity_tpu_torch.ops.select import (
 )
 from trinity_tpu_torch.plan.compile import compile_plan
 from trinity_tpu_torch.query.parser import Query
+from trinity_tpu_torch.utils.metrics import get_metrics
+from trinity_tpu_torch.utils.timings import trace
 
 # tapes reading more slots run the dense path (decode + torch tape eval)
 FUSED_MAX_SLOTS = 8
 HOT_CHUNK = 8  # terms per kernel launch when building the hot-term caches
 HOST_VERIFY_CHUNK = 2048  # candidates per step of the lazy host route
 
-__all__ = ["Executor", "SearchResult", "state_from_numpy"]
+__all__ = ["ExecFlags", "Executor", "SearchResult", "state_from_numpy"]
 
 
 def _resolve_device(device) -> torch.device:
@@ -167,8 +190,12 @@ class Executor:
     raises when torch sees no card) or ``"cpu"`` (the plain versions).
 
     The segment's block metadata, padded plane matrix and positions stream
-    are uploaded once. Two query-independent caches are built at the first
-    batch that reads them, by the kernels, in chunks of 8 terms: the
+    are packed on the host here and uploaded at first use through the
+    residency manager, which may evict them under
+    ``config.hbm_budget_bytes`` (``evict()`` drops them by hand); an
+    evicted executor uploads them again at its next search. Two
+    query-independent caches are built at the first batch that reads them,
+    by the kernels, in chunks of 8 terms, and stay outside the budget: the
     hot-term frequency planes (highest-df terms within
     ``config.hot_cache_bytes``) and the posmask hot cache (highest-df terms
     with df >= ``posmask_min_df`` within ``posmask_cache_bytes``)."""
@@ -177,17 +204,17 @@ class Executor:
         self.device = _resolve_device(device)
         self.seg = seg
         hp = np.ascontiguousarray(seg.hit_planes, dtype=np.uint32)
-        st = state_from_numpy(
-            {"bmeta": pack_block_meta(seg), "planes": pad_planes(seg.planes),
-             "hit_pw": np.vstack([hp.reshape(-1, TILE),
-                                  np.zeros((POS_GUARD_ROWS, TILE), np.uint32)]),
-             "hit_off": seg.hit_group_off.astype(np.int32)},
-            self.device,
-        )
-        self.bmeta = st["bmeta"]
-        self.planes = st["planes"]
-        self.hit_pw = st["hit_pw"]
-        self.hit_off = st["hit_off"]
+        self._host = {
+            "bmeta": pack_block_meta(seg), "planes": pad_planes(seg.planes),
+            "hit_pw": np.vstack([hp.reshape(-1, TILE),
+                                 np.zeros((POS_GUARD_ROWS, TILE), np.uint32)]),
+            "hit_off": seg.hit_group_off.astype(np.int32),
+        }
+        # what the residency budget counts: the segment arrays
+        self.device_bytes = sum(a.nbytes for a in self._host.values())
+        self._dev: Optional[dict] = None
+        self._upload_lock = threading.Lock()
+        self._residency = get_residency()
         # the masked-documents registry (set_masked_local_docs) and the
         # forms the paths read: host bool, device flat bool, f32 tiles
         self._deleted_np = None
@@ -226,14 +253,40 @@ class Executor:
         return {int(t): i for i, t in enumerate(order)}
 
     @property
-    def device_bytes(self) -> int:
-        """Bytes this executor holds on its device (segment arrays and
-        positions stream, the hot-term caches once built, the deletion
-        masks)."""
-        ts = (self.bmeta, self.planes, self.hit_pw, self.hit_off,
-              self._tf_planes, self._pos_planes, self._deleted_tiles,
-              self._deleted)
+    def device_bytes_held(self) -> int:
+        """Bytes this executor holds on its device now: the segment arrays
+        while resident, the hot-term caches once built, the deletion
+        masks."""
+        ts = (*(self._dev or {}).values(), self._tf_planes,
+              self._pos_planes, self._deleted_tiles, self._deleted)
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    # --------------------------------------------------- device residency
+    def _upload(self) -> None:
+        self._dev = state_from_numpy(self._host, self.device)
+
+    def evict(self) -> None:
+        """Drop the segment arrays from the device; the next search uploads
+        them again."""
+        self._dev = None
+
+    # read from the dict ensure() returns: another thread's ensure() may
+    # evict this executor the moment it returns
+    @property
+    def bmeta(self) -> torch.Tensor:
+        return self._residency.ensure(self)["bmeta"]
+
+    @property
+    def planes(self) -> torch.Tensor:
+        return self._residency.ensure(self)["planes"]
+
+    @property
+    def hit_pw(self) -> torch.Tensor:
+        return self._residency.ensure(self)["hit_pw"]
+
+    @property
+    def hit_off(self) -> torch.Tensor:
+        return self._residency.ensure(self)["hit_off"]
 
     # ---------------------------------------------------- hot-term caches
     @property
@@ -302,14 +355,39 @@ class Executor:
         if local_ids is None or len(local_ids) == 0:
             self._deleted_np = self._deleted = self._deleted_tiles = None
             return
-        W = self.seg.n_windows
-        m = np.zeros(W * WINDOW_SIZE, bool)
+        m = np.zeros(self.seg.n_windows * WINDOW_SIZE, bool)
         m[np.asarray(local_ids)] = True
+        self._install_mask(m)
+
+    def _install_mask(self, m: np.ndarray) -> None:
+        """The three forms the paths read: host bool, device flat bool,
+        device f32 tiles (1.0 = masked)."""
+        W = self.seg.n_windows
         self._deleted_np = m
         self._deleted = self._put(m)
         self._deleted_tiles = self._put(
             m.reshape(W, TILE, TILE).astype(np.float32)
         )
+
+    def _doc_set_masks(self, doc_set):
+        """Mask, for one call, every document outside the app-id set
+        `doc_set` (the VectorIDs node, docset_iterators.cpp:415-452), on
+        top of the installed registry. Returns the saved forms."""
+        seg = self.seg
+        saved = (self._deleted_np, self._deleted, self._deleted_tiles)
+        ids = np.asarray(doc_set, np.int64)
+        m = np.ones(seg.n_windows * WINDOW_SIZE, bool)
+        if seg.n_docs and len(ids):
+            # app ids -> local ids through the sorted doc_map
+            idx = np.minimum(np.searchsorted(seg.doc_map, ids), seg.n_docs - 1)
+            m[idx[seg.doc_map[idx] == ids]] = False
+        if self._deleted_np is not None:
+            m |= self._deleted_np
+        self._install_mask(m)
+        return saved
+
+    def _restore_masks(self, saved) -> None:
+        self._deleted_np, self._deleted, self._deleted_tiles = saved
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without blocking the host: through
@@ -336,23 +414,95 @@ class Executor:
         return {"variants": len(qs) + bool(qs),
                 "seconds": time.perf_counter() - t0}
 
-    def search(self, query, k: int = 10,
-               scorer: str = "bm25") -> List[SearchResult]:
-        """Ranked top-k of one query: a batch of one."""
-        return self.search_batch([query], k, scorer)[0]
+    def search(self, query, k: int = 10, scorer: str = "bm25", stats=None,
+               df_of=None, doc_set=None) -> List[SearchResult]:
+        """Ranked top-k of one query (AccumulatedScoreScheme, exec.h:25-34):
+        a batch of one. stats / df_of: collection statistics (docs_cnt,
+        term -> df) for the weights, else the segment's own. doc_set: app
+        ids the query is ANDed with (docset_iterators.cpp:415-452)."""
+        if doc_set is not None:
+            saved = self._doc_set_masks(doc_set)
+            try:
+                return self.search(query, k, scorer, stats, df_of)
+            finally:
+                self._restore_masks(saved)
+        with trace("exec.search"):
+            return self.search_batch([query], k, scorer, stats, df_of)[0]
 
     def search_batch(self, queries: Sequence, k: int = 10,
-                     scorer: str = "bm25") -> List[List[SearchResult]]:
+                     scorer: str = "bm25", stats=None,
+                     df_of=None) -> List[List[SearchResult]]:
         """Queries grouped by plan shape, each group one launch."""
-        return self.finish_batch(self.launch_batch(queries, k, scorer))
+        return self.finish_batch(
+            self.launch_batch(queries, k, scorer, stats, df_of))
 
-    def plan_batch(self, queries: Sequence, scorer: str = "bm25",
-                   k: int = 10) -> List[Group]:
-        """Host planning of a batch (the reference's ``launch_batch``
-        grouping and routing): parse, group by shape, route each phrase
-        group, and build each group's cell tables and weights."""
-        seg = self.seg
-        W = seg.n_windows
+    def search_many(self, queries: Sequence, k: int = 10,
+                    scorer: str = "bm25", stats=None,
+                    df_of=None) -> List[List[SearchResult]]:
+        """Multi-query execution: search_batch, as in the reference."""
+        return self.search_batch(queries, k, scorer, stats, df_of)
+
+    def launch(self, query, k: int = 10, scorer: str = "bm25", stats=None,
+               df_of=None):
+        """Launch one query without waiting (a batch of one); returns a
+        pending handle for finish(), None when the query parses to
+        nothing."""
+        h = self.launch_batch([query], k, scorer, stats, df_of)
+        return h if h[0] else None
+
+    def finish(self, pending) -> List[SearchResult]:
+        """Results of a launch() handle."""
+        return [] if pending is None else self.finish_batch(pending)[0]
+
+    def search_pruned(self, query, k: int = 10, scorer: str = "bm25",
+                      chunk_windows: int = 16, stats=None,
+                      df_of=None) -> List[SearchResult]:
+        """Block-max pruned top-k of one query (exec/pruned.py): a pruned
+        batch of one; results equal search()'s."""
+        return self.search_pruned_batch([query], k, scorer, chunk_windows,
+                                        stats, df_of)[0]
+
+    def search_pruned_batch(self, queries: Sequence, k: int = 10,
+                            scorer: str = "bm25", chunk_windows: int = 16,
+                            stats=None,
+                            df_of=None) -> List[List[SearchResult]]:
+        """Block-max pruned top-k of a batch (exec/pruned.py): windows in
+        descending-bound chunks of `chunk_windows`, each chunk one decode
+        launch, stopping per query once its k-th score beats every bound
+        left; results equal search_batch()'s."""
+        return search_pruned_batch(self, queries, k, scorer, chunk_windows,
+                                   stats, df_of)
+
+    def match_ids(self, query, scorer: str = "trivial",
+                  doc_set=None) -> np.ndarray:
+        """DocumentsOnly execution (exec.h:12-23): the matching app doc ids,
+        ascending. The query runs as a batch of one on its search route
+        (a lazy phrase group on the compound path instead) and its match is
+        read from the group's scores. doc_set: as in search()."""
+        if doc_set is not None:
+            saved = self._doc_set_masks(doc_set)
+            try:
+                return self.match_ids(query, scorer)
+            finally:
+                self._restore_masks(saved)
+        groups = self.plan_batch([query], scorer, k=1)
+        if not groups or self.seg.n_docs == 0:
+            return np.zeros(0, np.uint32)
+        g = groups[0]
+        if g.kind in ("lazyph", "lazyhost"):
+            g = self._prep_phrase_compound(g.tape, g.members, g.ctx)
+        a = {n: self._put(v) for n, v in g.arrays.items()}
+        if g.kind in ("flat", "fused"):
+            scores = self._score_tiles(g, a, scorer)[0]
+        else:
+            scores = {"dense": self._dense_scores,
+                      "posph": self._posph_scores,
+                      "phrase": self._compound_scores}[g.kind](g, a, scorer)
+        local = torch.nonzero(scores.reshape(-1) > NEG_INF).reshape(-1)
+        return self.seg.doc_map[local.cpu().numpy()]
+
+    def _parse(self, queries: Sequence) -> list:
+        """Each query's CompiledPlan (None when it parses to nothing)."""
         plans = []
         for q in queries:
             if isinstance(q, str):
@@ -361,14 +511,67 @@ class Executor:
                 root = q.root if isinstance(q, Query) else q
                 plan = compile_plan(root) if root is not None else None
             plans.append(plan)
+        return plans
+
+    def _weighting(self, stats, df_of):
+        """(docs_cnt, term -> df) for the weights: the collection's when
+        given, else the segment's own (the reference's ``_prepare``)."""
+        seg = self.seg
+        if df_of is None:
+            df_of = lambda t: (
+                int(seg.term_df[seg.term_id(t)]) if seg.term_id(t) >= 0 else 0
+            )
+        return (stats.docs_cnt if stats else seg.stats.docs_cnt), df_of
+
+    def _bool_arrays(self, members, T: int, B: int, flat: bool, model,
+                     docs_cnt: int, df_of):
+        """A boolean group's host inputs, T columns a query and B rows:
+        {"cs", "cn": (W, B*T) cell tables, "weights": (B, T) per slot for a
+        flat group, else (B, weight nodes); a flat group's "flags" (B, T)
+        and "kmin" (B,), pad rows kmin = T + 1 (they match nothing)}; the
+        (B*T,) hot-cache plane ids (-1 = decode); each member's f32 weight
+        per weight node."""
+        seg = self.seg
+        cs = np.zeros((seg.n_windows, B * T), np.int32)
+        cn = np.zeros_like(cs)
+        cids = np.full(B * T, -1, np.int32)
+        nw = T if flat else len(members[0][1].weight_terms)
+        arrays = {"cs": cs, "cn": cn,
+                  "weights": np.zeros((B, nw), np.float32)}
+        if flat:
+            arrays.update(flags=np.zeros((B, T), np.int32),
+                          kmin=np.full(B, T + 1, np.int32))
+        wrows = []
+        for bi, (_, plan) in enumerate(members):
+            tids = [seg.term_id(t) for t in plan.term_texts]
+            cols = slice(bi * T, bi * T + plan.n_slots)
+            cs[:, cols], cn[:, cols] = compute_cells(seg, tids)
+            cids[cols] = self._cids_for(tids, plan.n_slots)
+            wrow = np.array([model.weight([df_of(t) for t in terms], docs_cnt)
+                             for terms in plan.weight_terms], np.float32)
+            wrows.append(wrow)
+            if flat:
+                fl, wsel, km = _flatten_tape(plan.tape, plan.n_slots)
+                arrays["flags"][bi, : plan.n_slots] = fl
+                arrays["kmin"][bi] = km
+                for s, wi in enumerate(wsel):
+                    if wi >= 0:
+                        arrays["weights"][bi, s] = wrow[wi]
+            else:
+                arrays["weights"][bi] = wrow
+        return arrays, cids, wrows
+
+    def plan_batch(self, queries: Sequence, scorer: str = "bm25",
+                   k: int = 10, stats=None, df_of=None) -> List[Group]:
+        """Host planning of a batch (the reference's ``launch_batch``
+        grouping and routing): parse, group by shape, route each phrase
+        group, and build each group's cell tables and weights, from
+        `stats` / `df_of` when given (the reference's ``_prepare``)."""
         model = SIMILARITIES[scorer]
-        docs_cnt = seg.stats.docs_cnt
-        df_of = lambda t: (
-            int(seg.term_df[seg.term_id(t)]) if seg.term_id(t) >= 0 else 0
-        )
+        docs_cnt, df_of = self._weighting(stats, df_of)
         keyed: dict = {}
         phrase_keyed: dict = {}
-        for qi, plan in enumerate(plans):
+        for qi, plan in enumerate(self._parse(queries)):
             if plan is None:
                 continue
             key = plan.tape
@@ -392,38 +595,8 @@ class Executor:
             flat = key[0] == "flat"
             T = key[1] if flat else _pad_T(members[0][1].n_slots)
             B = _pick_bucket(buckets, len(members))
-            cs = np.zeros((W, B * T), np.int32)
-            cn = np.zeros((W, B * T), np.int32)
-            cids = np.full(B * T, -1, np.int32)
-            if flat:
-                # pad rows: kmin = T + 1 matches nothing (-inf rows)
-                weights = np.zeros((B, T), np.float32)
-                flags = np.zeros((B, T), np.int32)
-                kmin = np.full(B, T + 1, np.int32)
-            else:
-                weights = np.zeros(
-                    (B, len(members[0][1].weight_terms)), np.float32
-                )
-            for bi, (qi, plan) in enumerate(members):
-                tids = [seg.term_id(t) for t in plan.term_texts]
-                c_s, c_n = compute_cells(seg, tids)
-                cols = slice(bi * T, bi * T + plan.n_slots)
-                cs[:, cols] = c_s
-                cn[:, cols] = c_n
-                cids[cols] = self._cids_for(tids, plan.n_slots)
-                wrow = [
-                    model.weight([df_of(t) for t in terms], docs_cnt)
-                    for terms in plan.weight_terms
-                ]
-                if flat:
-                    fl, wsel, km = _flatten_tape(plan.tape, plan.n_slots)
-                    flags[bi, : plan.n_slots] = fl
-                    kmin[bi] = km
-                    for s, wi in enumerate(wsel):
-                        if wi >= 0:
-                            weights[bi, s] = wrow[wi]
-                else:
-                    weights[bi] = wrow
+            arrays, cids, _ = self._bool_arrays(members, T, B, flat, model,
+                                                docs_cnt, df_of)
             if flat:
                 kind, tape = "flat", None
             else:
@@ -431,13 +604,10 @@ class Executor:
                 kind = ("fused" if 1 <= len(used) <= FUSED_MAX_SLOTS
                         else "dense")
                 tape = key
-            arrays = {"cs": cs, "cn": cn, "weights": weights}
             if kind != "dense":
                 # cached slots take their tile from the planes, not a decode
-                arrays["cn"] = cn * (cids[None, :] < 0)
+                arrays["cn"] = arrays["cn"] * (cids[None, :] < 0)
                 arrays["cids"] = cids
-            if flat:
-                arrays.update(flags=flags, kmin=kmin)
             groups.append(Group(kind, tape, members, T, B, arrays))
 
         ctx = dict(model=model, docs_cnt=docs_cnt, df_of=df_of)
@@ -458,27 +628,38 @@ class Executor:
         """Launch one group; returns device (values (B, k) f32, local docids
         (B, k) int64, resolved (B,) bool for lazyph groups, else None)."""
         a = {n: self._put(v) for n, v in g.arrays.items()}
+        if g.kind in ("flat", "fused"):
+            return (*exact_window_topk(*self._score_tiles(g, a, scorer), k),
+                    None)
+        if g.kind == "lazyph":
+            return self._run_lazyph(g, a, k, scorer)
+        if g.kind == "lazyhost":
+            return (*self._run_lazyhost(g, a, k, scorer), None)
+        if g.kind == "posph":
+            B, W = g.B, self.seg.n_windows
+            scores = self._posph_scores(g, a, scorer)
+            rmax = scores.reshape(B, W, NSUB, SUB_DOCS).amax(dim=3)
+            return (*exact_window_topk(
+                scores, rmax[..., None].expand(B, W, NSUB, TILE), k), None)
+        run = {"dense": self._dense_scores, "phrase": self._compound_scores}
+        scores = run[g.kind](g, a, scorer)
+        return (*topk_lowest_index(scores.reshape(g.B, -1), k), None)
+
+    def _score_tiles(self, g: Group, a: dict, scorer: str):
+        """A flat (K2) or fused (K3) group's score tiles (B, W, 128, 128)
+        and sub-block maxima."""
         seg = self.seg
         if g.kind == "flat":
-            scores, rmax = fused_flat_score_tiles(
+            return fused_flat_score_tiles(
                 self.bmeta, self.planes, a["cs"], a["cn"], a["weights"],
                 a["flags"], a["kmin"], a["cids"], self.tf_planes, seg.n_docs,
                 self._deleted_tiles, scorer_name=scorer,
             )
-            return (*exact_window_topk(scores, rmax, k), None)
-        if g.kind == "fused":
-            scores, rmax = fused_score_tiles(
-                self.bmeta, self.planes, a["cs"], a["cn"], a["weights"],
-                a["cids"], self.tf_planes, seg.n_docs, self._deleted_tiles,
-                tape=g.tape, scorer_name=scorer,
-            )
-            return (*exact_window_topk(scores, rmax, k), None)
-        if g.kind == "lazyph":
-            return self._run_lazyph(g, a, k, scorer)
-        run = {"dense": self._run_dense, "posph": self._run_posph,
-               "lazyhost": self._run_lazyhost,
-               "phrase": self._run_compound}[g.kind]
-        return (*run(g, a, k, scorer), None)
+        return fused_score_tiles(
+            self.bmeta, self.planes, a["cs"], a["cn"], a["weights"],
+            a["cids"], self.tf_planes, seg.n_docs, self._deleted_tiles,
+            tape=g.tape, scorer_name=scorer,
+        )
 
     def _live_docs(self):
         """(W, 16384) bool: inside the segment and not masked."""
@@ -498,9 +679,10 @@ class Executor:
         view = lambda t: t.reshape(W, B, T, WINDOW_SIZE).transpose(0, 1)
         return tuple(map(view, out)) if with_offsets else view(out)
 
-    def _run_dense(self, g: Group, a: dict, k: int, scorer: str):
+    def _dense_scores(self, g: Group, a: dict, scorer: str):
         """>8-slot tapes: decode every cell, evaluate the tape over the
-        tiles in torch, one flat top-k (the reference's _build_batch_fn)."""
+        tiles in torch (the reference's _build_batch_fn): (B, W, 16384)
+        scores, -inf outside the match."""
         B, T = g.B, g.T
         freq = self._decode_batch(g, a)
         wts = a["weights"]
@@ -508,8 +690,7 @@ class Executor:
             g.tape, {s: freq[:, :, s] for s in range(T)},
             lambda i: wts[:, i].reshape(B, 1, 1), scorer,
         )
-        scores = torch.where(mask & self._live_docs(), score, NEG_INF)
-        return topk_lowest_index(scores.reshape(B, -1), k)
+        return torch.where(mask & self._live_docs(), score, NEG_INF)
 
     # ------------------------------------------------------- phrase path
     def _member_weights(self, key, members, ctx) -> np.ndarray:
@@ -568,10 +749,11 @@ class Executor:
         return Group("posph", key, members, K, B, arrays,
                      dict(memidx=memidx, cidx=cidx, kcol=kcol))
 
-    def _run_posph(self, g: Group, a: dict, k: int, scorer: str):
+    def _posph_scores(self, g: Group, a: dict, scorer: str):
         """Position words of the group's terms (kernel, or the hot cache),
-        every doc's phrase freq per query, score, exact top-k (the
-        reference's ``_build_phrase_pos_fused``)."""
+        every doc's phrase freq per query and its score (the reference's
+        ``_build_phrase_pos_fused``): (B, W, 128, 128), -inf outside the
+        match."""
         W, B, K, PW = self.seg.n_windows, g.B, g.T, self._pw_words
         cidx, kcol = g.ctx["cidx"], g.ctx["kcol"]
         masks = cache = None
@@ -596,10 +778,7 @@ class Executor:
                 live &= ~dead
             sc = score_tile(scorer, freq.to(torch.float32), a["weights"][b])
             scores[b] = torch.where(live, sc, NEG_INF)
-        rmax = scores.reshape(B, W, NSUB, SUB_DOCS).amax(dim=3)
-        return exact_window_topk(
-            scores, rmax[..., None].expand(B, W, NSUB, TILE), k
-        )
+        return scores
 
     def _prep_phrase_lazy(self, key, members, k, ctx) -> Group:
         """Lazy group (the reference's ``_prep_phrase_lazy``): cell tables,
@@ -682,6 +861,7 @@ class Executor:
         seg, B = self.seg, g.B
         model = g.ctx["model"]
         C2 = g.ctx["C2"]
+        get_metrics().count("phrase.host_verify")
         mf, mo, bound = self._member_tiles(g, a)
         kb, ki = topk_lowest_index(bound, min(C2, bound.shape[1]))
         overflow = ((bound > 0).sum(dim=1) > C2).cpu().numpy()
@@ -737,6 +917,7 @@ class Executor:
         gv, gi = gv.copy(), gi.copy()
         for bi, (_, plan) in enumerate(g.members):
             if not resolved[bi]:
+                get_metrics().count("phrase.dense_fallback")
                 fv, fi = self._dense_phrase_fallback(plan, g.ctx, k, scorer)
                 nkeep = min(len(fv), k)
                 gv[bi] = NEG_INF
@@ -749,7 +930,8 @@ class Executor:
         candidate verified): host (values, local ids)."""
         g = self._prep_phrase_compound(plan.tape, [(0, plan)], ctx)
         a = {n: self._put(v) for n, v in g.arrays.items()}
-        gv, gi = self._run_compound(g, a, k, scorer)
+        scores = self._compound_scores(g, a, scorer)
+        gv, gi = topk_lowest_index(scores.reshape(1, -1), k)
         return gv[0].cpu().numpy(), gi[0].cpu().numpy()
 
     def _prep_phrase_compound(self, key, members, ctx) -> Group:
@@ -777,13 +959,16 @@ class Executor:
                      {"cs": cs, "cn": cn, "weights": weights},
                      dict(ctx, C=C, phrase_slots=phrase_slots, fcaps=fcaps))
 
-    def _run_compound(self, g: Group, a: dict, k: int, scorer: str):
+    def _compound_scores(self, g: Group, a: dict, scorer: str):
         """Pass A (the first C member-conjunction candidates per window, in
         docid order), verification (device, or the numpy verifier), pass C
-        (the tape with the verified phrase-frequency tiles, a flat top-k)."""
+        (the tape with the verified phrase-frequency tiles): (B, W, 16384)
+        scores, -inf outside the match."""
         B, T = g.B, g.T
         freq, offv = self._decode_batch(g, a, with_offsets=True)
         C, fcaps = g.ctx["C"], g.ctx["fcaps"]
+        if fcaps is None:
+            get_metrics().count("phrase.host_verify")
         ptiles = []
         for p, slots in enumerate(g.ctx["phrase_slots"]):
             m = freq[:, :, slots[0]] > 0
@@ -814,8 +999,7 @@ class Executor:
             g.tape, {s: freq[:, :, s] for s in range(T)},
             lambda i: wts[:, i].reshape(B, 1, 1), scorer, ptiles,
         )
-        scores = torch.where(mask & self._live_docs(), score, NEG_INF)
-        return topk_lowest_index(scores.reshape(B, -1), k)
+        return torch.where(mask & self._live_docs(), score, NEG_INF)
 
     def _term_max_freq(self, text: str) -> int:
         """Segment-wide max per-doc freq of a term (from block_max_freq)."""
@@ -851,24 +1035,28 @@ class Executor:
 
     # -------------------------------------------------------------- batch
     def launch_batch(self, queries: Sequence, k: int = 10,
-                     scorer: str = "bm25"):
+                     scorer: str = "bm25", stats=None, df_of=None):
         """Plan and launch a batch; returns a handle for finish_batch.
         Boolean and posmask groups return without waiting for the device."""
-        groups = self.plan_batch(queries, scorer, k)
+        t0 = time.perf_counter()
+        get_metrics().count("search.queries", len(queries))
+        with trace("exec.prepare"):
+            groups = self.plan_batch(queries, scorer, k, stats, df_of)
         outs = [self.run_group(g, k, scorer) for g in groups]
-        return groups, outs, len(queries), k, scorer
+        return groups, outs, len(queries), k, scorer, t0
 
     def finish_batch(self, handle) -> List[List[SearchResult]]:
         """Wait for a launch_batch handle and build the results (rerunning
         the rare unresolved lazy-phrase queries)."""
-        groups, outs, n, k, scorer = handle
+        groups, outs, n, k, scorer, t0 = handle
         results: List[List[SearchResult]] = [[] for _ in range(n)]
         if not groups:
             return results
-        vals = torch.cat([o[0] for o in outs]).cpu().numpy()
-        ids = torch.cat([o[1] for o in outs]).cpu().numpy()
-        flags = [o[2] for o in outs if o[2] is not None]
-        resolved = torch.cat(flags).cpu().numpy() if flags else None
+        with trace("exec.device"):
+            vals = torch.cat([o[0] for o in outs]).cpu().numpy()
+            ids = torch.cat([o[1] for o in outs]).cpu().numpy()
+            flags = [o[2] for o in outs if o[2] is not None]
+            resolved = torch.cat(flags).cpu().numpy() if flags else None
         doc_map = self.seg.doc_map
         row = frow = 0
         for g, o in zip(groups, outs):
@@ -886,4 +1074,6 @@ class Executor:
                         break
                     res.append(SearchResult(int(doc_map[i]), float(v)))
                 results[qi] = res
+        get_metrics().observe_us("search.batch_latency",
+                                 (time.perf_counter() - t0) * 1e6)
         return results

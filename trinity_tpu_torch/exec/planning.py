@@ -3,14 +3,17 @@
 Copied from ``trinity_tpu/exec/executor.py`` (``SearchResult`` :96,
 ``_phrase_c_bound`` :49, ``_phrase_c_bucket`` :65, ``_pad_T`` :72,
 ``_plan_for_text`` :118, ``_flatten_tape`` :251, ``_pick_c2`` :1212,
-``_phrase_group_c2`` :1238, ``_pick_bucket`` :1254), whose module imports
-JAX programs around them; only the imports name the port. The batch
+``_phrase_group_c2`` :1238, ``_pick_bucket`` :1254, ``ExecFlags`` :83,
+and the pruned search's ``_tape_matches_empty`` :542 and
+``_tape_window_bounds`` :571), whose module imports JAX programs around
+them; only the imports name the port. The batch
 grouping, bucket ladders and phrase candidate capacities are the
 reference's, so both executors form the same groups from the same queries.
 """
 
 from __future__ import annotations
 
+import enum
 import functools
 from dataclasses import dataclass
 
@@ -60,6 +63,18 @@ def _pad_T(t: int) -> int:
         if t <= b:
             return b
     return t
+
+
+class ExecFlags(enum.IntFlag):
+    """exec.h:11-43. DOCUMENTS_ONLY = match_ids(); ACCUMULATED_SCORE_SCHEME
+    = search(); DISREGARD_TOKEN_FLAGS switches the rich-match
+    query_index_terms dedup key (exec_rich(disregard_token_flags=True),
+    exec/richmatch.py:collect_query_index_terms)."""
+
+    NONE = 0
+    DOCUMENTS_ONLY = 1
+    ACCUMULATED_SCORE_SCHEME = 2
+    DISREGARD_TOKEN_FLAGS = 4
 
 
 @dataclass
@@ -245,3 +260,109 @@ def _pick_bucket(buckets, n: int) -> int:
     and mesh): bucket drift between prep paths would compile distinct
     variants for the same workload and hollow out warmup coverage."""
     return next((b for b in buckets if b >= n), n)
+
+
+def _tape_matches_empty(tape) -> bool:
+    """True when the tape matches a document containing NONE of its terms
+    (all-optional roots, pure negation, MatchSome with kmin=0, ...).
+
+    Such queries match docs in windows where no query term is present, so
+    the presence half of the WAND bound is unsound for them, and the
+    pruned chunk evaluators' zeroed-cell trick (padding-duplicate window
+    neutralization) would turn dead rows into score-0 matches. The pruned
+    path routes them to the dense batch — they have nothing to prune
+    anyway (every window contains matches)."""
+    kind = tape[0]
+    if kind in ("tok", "phrase", "false"):
+        return False
+    if kind == "and":
+        return _tape_matches_empty(tape[1]) and _tape_matches_empty(tape[2])
+    if kind == "or":
+        return _tape_matches_empty(tape[1]) or _tape_matches_empty(tape[2])
+    if kind == "not":
+        return _tape_matches_empty(tape[1]) and not _tape_matches_empty(tape[2])
+    if kind == "unot":
+        return not _tape_matches_empty(tape[1])
+    if kind == "opt":
+        return True
+    if kind == "some":
+        _, kmin, children = tape
+        return sum(_tape_matches_empty(c) for c in children) >= kmin
+    return True  # unknown node: conservative — keep it on the dense path
+
+
+def _tape_window_bounds(seg, tape, cs_h, cn_h, w_h, model, col):
+    """Per-window (score upper bound, presence) for ANY boolean tape — the
+    generalized WAND bound (docset_iterators.h:38-60), round 3 extension of
+    the flat-AND/OR-only bound: token bounds come from per-block max
+    frequencies; AND/OR sum child bounds under joint/either presence (each
+    child's contribution is zeroed when it can't match); NOT keeps the lhs
+    bound (the rhs only removes matches); MatchSome sums member bounds
+    under a k-of-n presence count; ConstTrueExpr and unary-NOT can match
+    anywhere with zero own contribution. Scores are non-negative (BM25/
+    TF-IDF/Trivial weights >= 0), so summed child bounds are sound.
+
+    All sums are f32 in the SAME tree order as the kernel's accumulation
+    (_eval_tape / eval_flat_tiles slot order): f32 addition is monotone,
+    and each leaf bound >= the leaf's f32 doc score, so every f32 partial
+    sum — and hence the final bound — is >= any achievable f32 doc score.
+    An f64 bound sum can round BELOW the kernel's rounded-up f32 score and
+    wrongfully early-resolve a tie. Over-inclusive at window boundaries —
+    safe for an upper bound. Phrase tapes and matches-empty tapes are
+    excluded by the caller (no verification machinery; unsound presence)."""
+    W = cs_h.shape[0]
+    kind = tape[0]
+    if kind == "tok":
+        _, ti, widx = tape
+        c = col(ti)
+        starts = cs_h[:, c]
+        counts = cn_h[:, c]
+        has = counts > 0
+        ub = np.zeros(W, np.float32)
+        if has.any():
+            mf = np.zeros(W, np.int64)
+            idx = np.flatnonzero(has)
+            red = np.maximum.reduceat(
+                np.asarray(seg.block_max_freq, np.int64), starts[idx]
+            )
+            # reduceat segments run to the next start; also include the last
+            # block of each cell (cells can overlap at window boundaries)
+            mf[idx] = np.maximum(
+                red[: len(idx)],
+                seg.block_max_freq[starts[idx] + counts[idx] - 1],
+            )
+            ub = np.where(
+                has,
+                np.asarray(
+                    model.score_tile(mf.astype(np.float32), w_h[widx]),
+                    np.float32,
+                ),
+                np.float32(0.0),
+            )
+        return ub, has
+    if kind in ("and", "or"):
+        lu, lp = _tape_window_bounds(seg, tape[1], cs_h, cn_h, w_h, model, col)
+        ru, rp = _tape_window_bounds(seg, tape[2], cs_h, cn_h, w_h, model, col)
+        present = (lp & rp) if kind == "and" else (lp | rp)
+        return np.where(present, lu + ru, np.float32(0.0)), present
+    if kind == "not":
+        lu, lp = _tape_window_bounds(seg, tape[1], cs_h, cn_h, w_h, model, col)
+        return lu, lp
+    if kind == "unot":
+        return np.zeros(W, np.float32), np.ones(W, bool)
+    if kind == "opt":
+        cu, cp = _tape_window_bounds(seg, tape[1], cs_h, cn_h, w_h, model, col)
+        return np.where(cp, cu, np.float32(0.0)), np.ones(W, bool)
+    if kind == "some":
+        _, kmin, children = tape
+        tot = np.zeros(W, np.float32)
+        cnt = np.zeros(W, np.int64)
+        for ch in children:
+            cu, cp = _tape_window_bounds(seg, ch, cs_h, cn_h, w_h, model, col)
+            tot += cu
+            cnt += cp
+        present = cnt >= kmin
+        return np.where(present, tot, np.float32(0.0)), present
+    if kind == "false":
+        return np.zeros(W, np.float32), np.zeros(W, bool)
+    raise ValueError(kind)
