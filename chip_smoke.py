@@ -69,7 +69,27 @@ non-zero):
    byte budget below the searchable sources' segment bytes two passes must
    evict and stay equal to (a) (e); every kernel must launch in the phase
    (f). It prints the collection's pipelined QPS and search() p50/p99, the
-   merge's seconds and each source's device bytes.
+   merge's seconds and each source's device bytes;
+9. rich-match, intersect and the seal: exec_rich on the card must deliver
+   the CPU executor's callback stream (doc ids ascending, each matched
+   term's freq and hit positions) on the 18 phrases, the 8 rarest boolean
+   queries and phase 7's 4 compound queries, its ids equal to match_ids
+   (a stream longer than RICH_STREAM_CAP is compared over its first
+   RICH_STREAM_CAP matches: the per-match loop is Python) (a); on the
+   boolean query with the most matches a callback that raises AbortSearch
+   after RICH_ABORT_AT matches must get exactly the first RICH_ABORT_AT ids
+   of match_ids, with the device pass's time (CUDA events), its candidate
+   C and the host's time per 1,000 matches printed (b); phase 8's
+   collection's exec_rich must deliver each source's match_ids in order,
+   whose union is the collection's (c); intersect on the card must equal
+   the CPU executor's for the longest boolean query's 8 terms and the 64
+   mix terms of lowest df (d); warmup(threads=8) on a fresh executor must
+   build each hot cache once, and after seal_programs(strict=True) the
+   120-query mix, pipelined and blocking, must record no new variant,
+   with warmup's seconds at threads=8 and 1 printed (e); the decode
+   kernel must launch in (a)-(d) (f). Phase 4 times K1 on this phase's
+   two new shapes too (rich-match's cells with offsets; intersect at
+   T = 64).
 
 The last lines: the check that no trinity_tpu module was loaded, one JSON
 object {"kernels": [...]}, the nvidia-smi line (name, power limit), and
@@ -430,6 +450,15 @@ def kernel_cases(ex, queries):
                 *a, with_offsets=o),
             lambda a=a, o=off: po.decode_bytes(a[0], a[2], a[3], o),
             lambda: ""))
+    for what, cells, off in slice_k1_cells(seg, queries):
+        a = (ex.bmeta, ex.planes, *map(put, cells))
+        cases.append((
+            "decode", f"{what}, {int(cells[1].sum())} blocks, offsets {off}",
+            lambda a=a, o=off: po.materialize_freq_tiles(*a, with_offsets=o),
+            lambda a=a, o=off: po.materialize_freq_tiles_ref(
+                *a, with_offsets=o),
+            lambda a=a, o=off: po.decode_bytes(a[0], a[2], a[3], o),
+            lambda: ""))
     g = largest_lazy_group(seg, queries)
     a = (ex.bmeta, ex.planes, put(g.arrays["cs"]), put(g.arrays["cn"]))
     cases.append((
@@ -501,6 +530,56 @@ def kernel_cases(ex, queries):
 
 
 PRUNED_CHUNK = 16  # search_pruned_batch's default chunk_windows
+INTERSECT_WIDE = 64  # tokens of phase 9's wide intersect: the most it takes
+
+
+def query_terms(q):
+    """The term texts of a query's plan (its slots, in slot order)."""
+    from trinity_tpu_torch import parse_query
+    from trinity_tpu_torch.plan.compile import compile_plan
+
+    return compile_plan(parse_query(q).root).term_texts
+
+
+def longest_boolean(queries):
+    """The non-phrase query with the most slots (the first such)."""
+    qs = [q for q in queries if '"' not in q]
+    return max(qs, key=lambda q: len(query_terms(q)))
+
+
+def wide_intersect_terms(seg, queries, n=INTERSECT_WIDE):
+    """The `n` distinct terms of the mix with the lowest df. Not the
+    highest: the 64 hottest terms give nearly every document its own mask
+    (~1M distinct masks), and intersect's dominance filter (the
+    reference's, a pairwise scan) is quadratic in the distinct masks."""
+    terms = {t for q in queries for t in query_terms(q)}
+    df = lambda t: int(seg.term_df[seg.term_id(t)])
+    return sorted(terms, key=lambda t: (df(t), t))[:n]
+
+
+def slice_k1_cells(seg, queries):
+    """K1's inputs on phase 9's paths: (what, (cell starts, cell counts),
+    with_offsets) for rich-match's device pass on the mix's longest
+    boolean query (T = its padded slots, hit offsets) and for intersect
+    over the INTERSECT_WIDE mix terms of lowest df (T = 64, no offsets);
+    every window."""
+    import numpy as np
+
+    from trinity_tpu_torch.exec.planning import _pad_T
+    from trinity_tpu_torch.ops.postings import compute_cells
+
+    out = []
+    q = longest_boolean(queries)
+    texts = query_terms(q)
+    cs, cn = compute_cells(seg, [seg.term_id(t) for t in texts])
+    pad = ((0, 0), (0, _pad_T(len(texts)) - len(texts)))
+    out.append((f"rich-match {q!r}: T={_pad_T(len(texts))}",
+                (np.pad(cs, pad), np.pad(cn, pad)), True))
+    toks = wide_intersect_terms(seg, queries)
+    out.append((f"intersect of the {len(toks)} mix terms of lowest df: "
+                f"T={len(toks)}",
+                compute_cells(seg, [seg.term_id(t) for t in toks]), False))
+    return out
 
 
 def pruned_chunk(ex, queries):
@@ -840,6 +919,20 @@ def phase_lazy(seg, queries, base_topk, phrase):
     torch.cuda.empty_cache()
 
 
+def compound_queries(seg, queries, phrase):
+    """Phase 7's 4 compound phrases, built from the bench's phrases: the
+    bigram with the rarest member ("a b", which keeps the CPU side quick),
+    c the most common phrase member, d another bigram's member."""
+    df = lambda t: int(seg.term_df[seg.term_id(t)])
+    members = [q.strip('"').split() for q, p in zip(queries, phrase) if p]
+    pairs = sorted((m for m in members if len(m) == 2),
+                   key=lambda ab: min(map(df, ab)))
+    (a, b), d = pairs[0], pairs[1][0]
+    c = max((t for m in members for t in m if t not in (a, b, d)), key=df)
+    return [f'"{a} {b}" {c}', f'"{a} {b}" OR {c}', f'{c} NOT "{a} {b}"',
+            f'("{a} {b}" {c}) OR {d}']
+
+
 def phase_compound(seg, queries, phrase):
     """Compound phrases on the card against the port's CPU executor."""
     import numpy as np
@@ -847,16 +940,7 @@ def phase_compound(seg, queries, phrase):
     from trinity_tpu_torch import Executor
     from trinity_tpu_torch.utils import kernels
 
-    df = lambda t: int(seg.term_df[seg.term_id(t)])
-    members = [q.strip('"').split() for q, p in zip(queries, phrase) if p]
-    # the bigram with the rarest member keeps the CPU side quick; c, the
-    # most common phrase member, meets it; d is another bigram's member
-    pairs = sorted((m for m in members if len(m) == 2),
-                   key=lambda ab: min(map(df, ab)))
-    (a, b), d = pairs[0], pairs[1][0]
-    c = max((t for m in members for t in m if t not in (a, b, d)), key=df)
-    qs = [f'"{a} {b}" {c}', f'"{a} {b}" OR {c}', f'{c} NOT "{a} {b}"',
-          f'("{a} {b}" {c}) OR {d}']
+    qs = compound_queries(seg, queries, phrase)
     out, kinds = [], []
     for dev in ("cuda", "cpu"):
         ex = Executor(seg, device=dev)
@@ -1158,6 +1242,221 @@ def phase_collection(seg, queries, phrase):
     if not all(launches[k] > 0 for k in ("decode", "flat", "tape",
                                           "posmask")):
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
+    return coll
+
+
+RICH_STREAM_CAP = 2_000  # matches of a phase-9 (a) stream compared in full
+RICH_ABORT_AT = 10_000  # phase 9 (b): the callback aborts after these
+
+
+def rich_stream(ex_or_coll, q, cap=RICH_STREAM_CAP):
+    """exec_rich of `q`, stopped by AbortSearch after `cap` matches: the
+    stream as plain values (doc id; each matched term's freq and hit
+    positions), whether it was cut at `cap`, and the seconds it took."""
+    from trinity_tpu_torch import AbortSearch, exec_rich
+
+    out = []
+
+    def on_match(md):
+        out.append((md.doc_id, [(t.term, t.freq, [h.pos for h in t.hits])
+                                for t in md.matched_terms]))
+        if len(out) == cap:
+            raise AbortSearch
+
+    t0 = time.perf_counter()
+    if hasattr(ex_or_coll, "sources"):
+        ex_or_coll.exec_rich(q, on_match)
+    else:
+        exec_rich(ex_or_coll, q, on_match)
+    return out, len(out) == cap, time.perf_counter() - t0
+
+
+def phase_rich(seg, queries, phrase, coll):
+    """Phase 9: rich-match (exec_rich), intersect and threaded warmup with
+    the seal on the bench deployment, one H100."""
+    import numpy as np
+    import torch
+
+    from trinity_tpu_torch import AbortSearch, Executor, exec_rich, get_config
+    from trinity_tpu_torch.exec.richmatch import _relax_tape, rich_pass
+    from trinity_tpu_torch.exec.planning import _pad_T
+    from trinity_tpu_torch.ops.postings import compute_cells
+    from trinity_tpu_torch.plan.compile import compile_plan
+    from trinity_tpu_torch.query.intersect import intersect
+    from trinity_tpu_torch.query.parser import parse_query
+    from trinity_tpu_torch.utils import kernels
+    from trinity_tpu_torch.utils.seal import (
+        post_seal_misses,
+        seal_programs,
+        unseal_programs,
+    )
+
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    gpu, cpu = Executor(seg, "cuda"), Executor(seg, "cpu")
+    bool_qs = [q for q, p in zip(queries, phrase) if not p]
+    counts = [len(gpu.match_ids(q)) for q in bool_qs]
+    order = np.argsort(counts, kind="stable")
+    rare = [bool_qs[i] for i in order if counts[i] > 0][:8]
+
+    # (a) the card's streams equal the CPU executor's, and its ids are
+    # match_ids' (the first RICH_STREAM_CAP of a longer stream)
+    qs = ([q for q, p in zip(queries, phrase) if p] + rare
+          + compound_queries(seg, queries, phrase))
+    cut = k1_rich = 0  # K1 launches of the card's exec_rich calls
+    for q in qs:
+        k1 = kernels.launches["decode"]
+        got, capped, dt = rich_stream(gpu, q)
+        k1_rich += kernels.launches["decode"] - k1
+        want, _, dt_cpu = rich_stream(cpu, q)
+        if got != want:
+            raise RuntimeError(f"exec_rich {q!r}: the card's stream differs "
+                               f"from the CPU's")
+        ids = gpu.match_ids(q)
+        if [d for d, _ in got] != ids[:len(got)].tolist() or (
+                not capped and len(got) != len(ids)):
+            raise RuntimeError(f"exec_rich {q!r}: ids differ from match_ids")
+        cut += capped
+        log(f"[rich] (a) {q!r}: {len(got)} matches"
+            f"{' (first of ' + str(len(ids)) + ')' if capped else ''} equal "
+            f"the CPU's, card {dt:.3f}s, CPU {dt_cpu:.3f}s")
+    if sum(1 for q in qs if gpu.match_ids(q).size) < len(qs) // 2:
+        raise RuntimeError("exec_rich: most queries matched nothing")
+    log(f"[rich] (a) {len(qs)}/{len(qs)} streams equal (18 phrases, 8 rarest "
+        f"boolean, 4 compound; {cut} compared over their first "
+        f"{RICH_STREAM_CAP} matches)")
+
+    # (b) the boolean query with the most matches, aborted at RICH_ABORT_AT
+    heavy = bool_qs[int(order[-1])]
+    plan = compile_plan(parse_query(heavy).root)
+    T = _pad_T(plan.n_slots)
+    cs, cn = compute_cells(seg, [seg.term_id(t) for t in plan.term_texts])
+    cs, cn = (np.pad(a, ((0, 0), (0, T - plan.n_slots))) for a in (cs, cn))
+    relaxed = _relax_tape(plan.tape)
+    cap = get_config().rich_candidate_cap
+    rich_pass(gpu, relaxed, cs, cn, cap)  # warm
+    dev_ms = []
+    for _ in range(5):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        C, local, _, _ = rich_pass(gpu, relaxed, cs, cn, cap)
+        e.record()
+        e.synchronize()
+        dev_ms.append(s.elapsed_time(e))
+    delivered = []
+
+    def on_match(md):
+        if len(delivered) == RICH_ABORT_AT:
+            raise AbortSearch
+        delivered.append(md.doc_id)
+
+    t0 = time.perf_counter()
+    k1 = kernels.launches["decode"]
+    n = exec_rich(gpu, heavy, on_match)
+    k1_rich += kernels.launches["decode"] - k1
+    wall = time.perf_counter() - t0
+    ids = gpu.match_ids(heavy)
+    if n != RICH_ABORT_AT or delivered != ids[:RICH_ABORT_AT].tolist():
+        raise RuntimeError(f"AbortSearch: {n} delivered, ids "
+                           f"{'equal' if delivered == ids[:n].tolist() else 'differ'}")
+    dms = float(np.median(dev_ms))
+    log(f"[rich] (b) {heavy!r} ({counts[int(order[-1])]} matches, "
+        f"{len(local)} candidates, T={T}): AbortSearch after {n} = the first "
+        f"{n} of match_ids; device pass {dms:.4f} ms (CUDA events, median of "
+        f"5), candidates C = {C}; exec_rich {wall:.3f}s, host "
+        f"materialization {(wall * 1e3 - dms) / (n / 1000):.3f} ms per 1,000 "
+        f"matches")
+
+    # (c) the collection: per source ascending, the union is match_ids
+    srcs = [src.executor() for src in coll.sources if not src.index_empty()]
+    for q in rare:
+        k1 = kernels.launches["decode"]
+        got, capped, _ = rich_stream(coll, q, cap=None)
+        k1_rich += kernels.launches["decode"] - k1
+        per = [ex.match_ids(q) for ex in srcs]
+        parts, at = [], 0
+        for ids in per:
+            parts.append([d for d, _ in got[at:at + len(ids)]])
+            at += len(ids)
+        if at != len(got) or any(p != ids.tolist()
+                                 for p, ids in zip(parts, per)):
+            raise RuntimeError(f"collection exec_rich {q!r}: a source's "
+                               f"stream differs from its match_ids")
+        union = np.unique([d for d, _ in got]).astype(np.uint32)
+        if not np.array_equal(union, coll.match_ids(q)):
+            raise RuntimeError(f"collection exec_rich {q!r}: the union "
+                               f"differs from coll.match_ids")
+    log(f"[rich] (c) collection exec_rich on the 8 rarest boolean queries: "
+        f"each source's stream ascending and equal to its match_ids, the "
+        f"union equal to the collection's match_ids (8/8)")
+
+    # (d) intersect on the card equals the CPU executor's
+    k1_intersect = 0
+    for toks in (query_terms(longest_boolean(queries)),
+                 wide_intersect_terms(seg, queries)):
+        times = []
+        for ex in (gpu, cpu):
+            k1 = kernels.launches["decode"]
+            t0 = time.perf_counter()
+            res = intersect(ex, toks)
+            times.append(time.perf_counter() - t0)
+            k1_intersect += kernels.launches["decode"] - k1
+            if ex is gpu:
+                got = res
+        if got != res:
+            raise RuntimeError(f"intersect of {len(toks)} tokens: the card's "
+                               f"list differs from the CPU's")
+        log(f"[rich] (d) intersect of {len(toks)} tokens: {len(got)} "
+            f"(mask, count) pairs equal the CPU's; card {times[0]:.3f}s, "
+            f"CPU {times[1]:.3f}s")
+    del cpu
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+
+    # (e) threaded warmup on a fresh executor, then the strict seal
+    builds = {}
+
+    def counting(ex, name):
+        build = getattr(ex, name)
+
+        def counted():
+            builds[name] = builds.get(name, 0) + 1
+            return build()
+        setattr(ex, name, counted)
+
+    w1 = Executor(seg, "cuda").warmup(queries, k=10, threads=1)
+    torch.cuda.empty_cache()
+    ex = Executor(seg, "cuda")
+    for name in ("_build_tf_planes", "_build_pos_planes"):
+        counting(ex, name)
+    w8 = ex.warmup(queries, k=10, threads=8)
+    if builds != {"_build_tf_planes": 1, "_build_pos_planes": 1}:
+        raise RuntimeError(f"warmup(threads=8) built the caches {builds}")
+    before = post_seal_misses()
+    seal_programs(strict=True)
+    try:
+        qps(ex, queries)
+        for q in queries:
+            ex.search(q, k=10)
+        torch.cuda.synchronize()
+    finally:
+        unseal_programs()
+    misses = post_seal_misses() - before
+    if misses:
+        raise RuntimeError(f"{misses} post-seal misses")
+    log(f"[rich] (e) warmup of {len(queries)} queries: threads=8 "
+        f"{w8['seconds']:.3f}s ({w8['programs']} variants first recorded), "
+        f"threads=1 {w1['seconds']:.3f}s ({w1['programs']}); each hot cache "
+        f"built once under 8 threads; sealed strict, the mix pipelined and "
+        f"blocking: {misses} post-seal misses")
+
+    # (f) K1 launched in the phase
+    log(f"[rich] (f) K1 launches: {k1_rich} by exec_rich's device passes "
+        f"in (a)-(c) (one a call and source), {k1_intersect} by intersect in "
+        f"(d); all kernels in (a)-(d), match_ids included: {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    if not (k1_rich and k1_intersect):
+        raise RuntimeError(f"the decode kernel never launched: {launches}")
 
 
 # device functions the executor calls, timed one by one by --profile
@@ -1303,7 +1602,9 @@ def main():
     launches = phase_slice(seg, queries, base_topk, phrase)
     phase_lazy(seg, queries, base_topk, phrase)
     phase_compound(seg, queries, phrase)
-    phase_collection(seg, queries, phrase)
+    coll = phase_collection(seg, queries, phrase)
+    phase_rich(seg, queries, phrase, coll)
+    del coll
     loaded = reference_modules()
     log(f"[imports] modules of the JAX package loaded in this run: {loaded}")
     if loaded:

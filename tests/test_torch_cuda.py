@@ -9,7 +9,8 @@ the fixture, not at import). On a machine with a card, run them with
 machine need not have; this file imports only the port, which it steers
 with the port's own ``configure``.)
 
-Tolerances: freq, offset and position-word tiles, and top-k ids, must be
+Tolerances: freq, offset and position-word tiles, top-k ids, rich-match
+streams and intersect lists must be
 bit-equal;
 scores and sub-block maxima within 2 ulp (rtol=2.4e-7, atol=0), the
 repo's engine-vs-oracle bound — the kernels keep the plain version's f32
@@ -607,3 +608,79 @@ def test_collection_cuda_equals_cpu(dev, seg, hot_cfg):
     for a, b in zip(gm, wm):
         np.testing.assert_array_equal(a, b)
     assert any(set(r.doc_id for r in res) & set(ids.tolist()) for res in gb)
+
+
+def _rich_stream(ex, q, cap=3000):
+    from trinity_tpu_torch import AbortSearch, exec_rich
+
+    out = []
+
+    def on_match(md):
+        out.append((md.doc_id, [(t.term, t.freq, [h.pos for h in t.hits])
+                                for t in md.matched_terms]))
+        if len(out) == cap:
+            raise AbortSearch
+
+    n = exec_rich(ex, q, on_match)
+    return out, n
+
+
+def test_exec_rich_cuda_equals_cpu(dev):
+    """Rich-match on the card (K1 with offsets, the relaxed tape, the
+    docid-ordered compaction) delivers the CPU executor's stream, under a
+    deletion registry, and its ids are match_ids'; it launches K1."""
+    pseg = make_phrase_segment()
+    masked = np.arange(5, pseg.n_docs, 13)
+    out = []
+    for d in (dev, "cpu"):
+        ex = Executor(pseg, d)
+        ex.set_masked_local_docs(masked)
+        before = kernels.launches["decode"]
+        out.append([_rich_stream(ex, q) for q in PHRASE_QUERIES])
+        if d == dev:
+            assert kernels.launches["decode"] - before == len(PHRASE_QUERIES)
+            ids = [ex.match_ids(q) for q in PHRASE_QUERIES]
+    for q, g, w, i in zip(PHRASE_QUERIES, *out, ids):
+        assert g == w, q
+        assert [m[0] for m in g[0]] == i[:len(g[0])].tolist(), q
+    assert sum(1 for g in out[0] if g[1]) >= len(PHRASE_QUERIES) - 2
+
+
+@pytest.mark.parametrize("n_tokens", [8, 64])
+def test_intersect_cuda_equals_cpu(dev, seg, n_tokens):
+    """intersect's presence words on the card (K1 at T = tokens, up to 64,
+    bit 63 included) give the CPU executor's (mask, count) list."""
+    from trinity_tpu_torch.query.intersect import intersect
+
+    toks = [f"t{i}" for i in range(n_tokens)]
+    before = kernels.launches["decode"]
+    got = intersect(Executor(seg, dev), toks)
+    assert kernels.launches["decode"] == before + 1
+    assert got == intersect(Executor(seg, "cpu"), toks)
+    assert got and any(m >> (n_tokens - 1) for m, _ in got)
+
+
+def test_threaded_warmup_then_strict_seal(dev, seg, hot_cfg):
+    """warmup(threads=8) on the card builds each hot cache once; after a
+    strict seal the same queries, pipelined and blocking, miss nothing."""
+    from trinity_tpu_torch.utils.seal import (
+        post_seal_misses,
+        seal_programs,
+        unseal_programs,
+    )
+
+    ex = Executor(seg, dev)
+    builds = []
+    build = ex._build_tf_planes
+    ex._build_tf_planes = lambda: builds.append(1) or build()
+    w = ex.warmup(QUERIES, threads=8)
+    assert builds == [1] and w["variants"] == len(QUERIES) + 1
+    before = post_seal_misses()
+    seal_programs(strict=True)
+    try:
+        ex.finish_batch(ex.launch_batch(QUERIES))
+        for q in QUERIES:
+            ex.search(q)
+    finally:
+        unseal_programs()
+    assert post_seal_misses() == before

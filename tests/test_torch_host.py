@@ -11,8 +11,11 @@
 - chip_smoke's corpus build, at a small N_DOCS / VOCAB, writes the same
   docs.bin bytes and the same segment as bench._build_corpus_fresh.
 - The whole-module copies (utils/timings.py, utils/metrics.py,
-  index/merge.py) differ from the originals only in the package their
-  imports name; exec/planning.py's copies of ExecFlags, _flatten_tape and
+  index/merge.py, query/rewrite.py) differ from the originals only in the
+  package their imports name; rich-match's host half
+  (exec/richmatch.py), the spec evaluator it re-checks phrases with
+  (exec/speceval.py, from trinity_tpu/oracle.py) and
+  intersection_alternatives equal the originals' source; exec/planning.py's copies of ExecFlags, _flatten_tape and
   the pruned search's _tape_matches_empty / _tape_window_bounds equal the
   originals' source, and the two bound helpers give the reference's values
   on a 2-window segment.
@@ -188,7 +191,7 @@ def _port_text(text):
 
 
 @pytest.mark.parametrize("rel", ["utils/timings.py", "utils/metrics.py",
-                                 "index/merge.py"])
+                                 "index/merge.py", "query/rewrite.py"])
 def test_module_copies_equal_originals(rel):
     """The port's copies of whole host modules differ from the originals
     only in the package their imports name."""
@@ -211,6 +214,29 @@ def test_planning_helpers_equal_originals(name):
     got = inspect.getsource(getattr(planning, name))
     assert got.replace("trinity_tpu_torch", "trinity_tpu") == (
         inspect.getsource(getattr(ref_executor, name)))
+
+
+RICH_HOST = ["AbortSearch", "TermHit", "MatchedTerm", "QueryIndexTerm",
+             "TermInstance", "QueryTermCtx", "collect_query_index_terms",
+             "MatchedDocument", "DocWordsSpace", "_relax_tape"]
+
+
+@pytest.mark.parametrize("port,ref,name", [
+    *(("exec.richmatch", "exec.richmatch", n) for n in RICH_HOST),
+    *(("exec.speceval", "oracle", n) for n in ("phrase_freq", "Scorer",
+                                                "_eval")),
+    ("query.intersect", "query.intersect", "intersection_alternatives"),
+])
+def test_host_copies_equal_originals(port, ref, name):
+    """The port's copies of single classes and functions, by source."""
+    import importlib
+    import inspect
+
+    got = inspect.getsource(getattr(
+        importlib.import_module(f"trinity_tpu_torch.{port}"), name))
+    want = inspect.getsource(getattr(
+        importlib.import_module(f"trinity_tpu.{ref}"), name))
+    assert got.replace("trinity_tpu_torch", "trinity_tpu") == want
 
 
 TAPES = ["t0", "t0 t1", "t0 OR <t1>", "<t1> OR t0", "t0 NOT t1", "t0 OR NOT t1",

@@ -6,8 +6,9 @@ never hides a missing device.
   ``trinity_tpu.*``, every module of the port imports and a tiny CPU
   search runs, phrases included (posmask, lazy and compound paths), and
   so do a two-generation collection (search, pruned search, match_ids
-  through ``exec_query``), the merge, ``doc_set`` and the metrics; no
-  ``trinity_tpu`` module is loaded. Only then is the finder removed and the
+  through ``exec_query``), the merge, ``doc_set``, the metrics,
+  rich-match (``exec_rich``), ``intersect``, ``rewrite_query`` and a
+  threaded warmup with the seal; no ``trinity_tpu`` module is loaded. Only then is the finder removed and the
   oracle (``trinity_tpu.oracle``, with the JAX package's parser) imported,
   and the results must agree with it.
 - No source file of the port, and not chip_smoke.py, imports jax or
@@ -94,6 +95,25 @@ assert coll_hits == [(r.doc_id, r.score)
 assert list(exec_query("a", coll, flags=ExecFlags.DOCUMENTS_ONLY)) == [1, 2, 3]
 assert list(ex.match_ids("a", doc_set=[1, 4])) == [1, 4]
 assert get_metrics().snapshot()["pruned.rounds"]["value"] > 0
+# rich-match, intersect, rewrite, threaded warmup and the seal
+from trinity_tpu_torch import (Alternative, exec_rich, parse_query,
+                               rewrite_query)
+from trinity_tpu_torch.query.intersect import intersect
+from trinity_tpu_torch.utils.seal import (post_seal_misses, seal_programs,
+                                          unseal_programs)
+rich = []
+exec_rich(ex, '"a b" OR d', lambda md: rich.append(
+    (md.doc_id, [(t.term, [h.pos for h in t.hits]) for t in md.matched_terms])))
+assert rich == [(1, [("a", [1, 4]), ("b", [2])]), (3, [("a", [1]), ("d", [3])]),
+                (4, [("a", [3]), ("d", [1, 2])])], rich
+assert intersect(ex, ["a", "c"]) == [(3, 2)]  # {a}, {c} dominated
+assert "e" in str(rewrite_query(parse_query("a"),
+                                lambda w: [Alternative(["e"])]))
+assert ex.warmup(qs, threads=4)["variants"] == len(qs) + 1
+seal_programs(strict=True)
+ex.search_batch(qs)
+assert post_seal_misses() == 0
+unseal_programs()
 loaded = [m for m in sys.modules
           if m == "trinity_tpu" or m.startswith("trinity_tpu.")]
 assert not loaded, loaded

@@ -34,12 +34,13 @@ def assert_same_segment(got, want):
             assert a == b, f.name
 
 
-def build_pair(fill):
-    """fill(session) indexes documents into a fresh session; returns
-    (port segment, reference segment), held equal."""
+def build_pair(fill, **session_kw):
+    """fill(session) indexes documents into a fresh session (made with
+    `session_kw`, e.g. track_payloads=True); returns (port segment,
+    reference segment), held equal."""
     segs = []
     for cls in (PortSession, RefSession):
-        sess = cls()
+        sess = cls(**session_kw)
         fill(sess)
         segs.append(sess.commit())
     assert_same_segment(*segs)

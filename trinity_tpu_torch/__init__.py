@@ -8,7 +8,11 @@ collection of segment generations (``IndexSourcesCollection``: newer
 generations mask the documents they update or erase in older ones,
 collection-wide statistics, one merged top-k) and segment merge
 (``MergeCandidatesCollection``); segment arrays kept on the card under a
-byte budget (``exec/residency.py``). It stands alone: the
+byte budget (``exec/residency.py``); the default rich-match mode
+(``exec_rich``: every match with its terms' hits, in docid order),
+co-occurrence mining (``query/intersect.py``), query rewriting
+(``rewrite_query``) and threaded warmup with a seal on the variants it
+ran (``utils/seal.py``). It stands alone: the
 host code — config, indexing and the segment format, the query language,
 plan compilation, weights — is the port's own copy of the JAX package's
 JAX-free modules, in the same layout (``config.py``, ``index/``,
@@ -30,19 +34,31 @@ Quick start::
         print(hit.doc_id, hit.score)
 """
 
+from trinity_tpu_torch import limits
 from trinity_tpu_torch.config import configure, get_config
-from trinity_tpu_torch.index.builder import SegmentIndexSession
-from trinity_tpu_torch.index.format import SegmentData
-from trinity_tpu_torch.index.merge import MergeCandidatesCollection, Retention
-from trinity_tpu_torch.index.source import IndexSource, IndexSourcesCollection
-from trinity_tpu_torch.query.parser import parse_query
 from trinity_tpu_torch.exec.executor import (
     ExecFlags,
     Executor,
     SearchResult,
     state_from_numpy,
 )
+from trinity_tpu_torch.exec.richmatch import (
+    AbortSearch,
+    DocWordsSpace,
+    MatchedDocument,
+    MatchedTerm,
+    TermHit,
+    exec_rich,
+)
+from trinity_tpu_torch.index.builder import SegmentIndexSession
+from trinity_tpu_torch.index.format import SegmentData
+from trinity_tpu_torch.index.merge import MergeCandidatesCollection, Retention
+from trinity_tpu_torch.index.source import IndexSource, IndexSourcesCollection
+from trinity_tpu_torch.query.parser import ParserFlags, Query, parse_query
+from trinity_tpu_torch.query.rewrite import Alternative, rewrite_query
 from trinity_tpu_torch.utils.metrics import get_metrics
+
+__version__ = "0.1.0"
 
 
 def exec_query(query, source, k=10, scorer="bm25",
@@ -61,19 +77,31 @@ def exec_query(query, source, k=10, scorer="bm25",
 
 
 __all__ = [
-    "ExecFlags",
+    "limits",
+    "configure",
+    "get_config",
     "Executor",
+    "ExecFlags",
+    "SearchResult",
+    "SegmentIndexSession",
+    "SegmentData",
     "IndexSource",
     "IndexSourcesCollection",
     "MergeCandidatesCollection",
     "Retention",
-    "SearchResult",
-    "SegmentData",
-    "SegmentIndexSession",
-    "configure",
-    "exec_query",
-    "get_config",
-    "get_metrics",
+    "Query",
     "parse_query",
+    "ParserFlags",
+    "Alternative",
+    "rewrite_query",
+    "exec_query",
+    "get_metrics",
+    "exec_rich",
+    "AbortSearch",
+    "MatchedDocument",
+    "MatchedTerm",
+    "TermHit",
+    "DocWordsSpace",
+    "__version__",
     "state_from_numpy",
 ]

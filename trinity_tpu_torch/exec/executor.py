@@ -53,10 +53,16 @@ phrases inside trees. Counters (``utils/metrics.py``) and spans
 ``exec.device``.
 Phrase groups are not padded to a batch bucket: eager torch compiles
 nothing per shape.
+
+``warmup`` sends a workload through ``warmup_driver`` on a thread pool;
+each group's launch shape and each hot-cache build is recorded for the
+seal (``utils/seal.py``). The hot-term caches are built once per executor
+under a lock, whichever threads reach them first.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from dataclasses import dataclass, field
@@ -87,7 +93,7 @@ from trinity_tpu_torch.exec.phrases import (
 )
 from trinity_tpu_torch.exec.residency import get_residency
 from trinity_tpu_torch.index.format import SegmentData
-from trinity_tpu_torch.limits import TILE, WINDOW_SIZE
+from trinity_tpu_torch.limits import MAX_SEGMENT_DOCS, TILE, WINDOW_SIZE
 from trinity_tpu_torch.models.similarity import SIMILARITIES, score_tile
 from trinity_tpu_torch.ops.fusedscore import (
     NEG_INF,
@@ -118,6 +124,7 @@ from trinity_tpu_torch.ops.select import (
 )
 from trinity_tpu_torch.plan.compile import compile_plan
 from trinity_tpu_torch.query.parser import Query
+from trinity_tpu_torch.utils import seal
 from trinity_tpu_torch.utils.metrics import get_metrics
 from trinity_tpu_torch.utils.timings import trace
 
@@ -125,8 +132,40 @@ from trinity_tpu_torch.utils.timings import trace
 FUSED_MAX_SLOTS = 8
 HOT_CHUNK = 8  # terms per kernel launch when building the hot-term caches
 HOST_VERIFY_CHUNK = 2048  # candidates per step of the lazy host route
+_SERIALS = itertools.count()  # names an executor's caches for the seal
 
-__all__ = ["ExecFlags", "Executor", "SearchResult", "state_from_numpy"]
+# kinds whose launch depends on the tape itself (the rest take it as data)
+TAPE_KINDS = ("fused", "dense", "phrase")
+
+__all__ = ["ExecFlags", "Executor", "SearchResult", "state_from_numpy",
+           "warmup_driver"]
+
+
+def warmup_driver(target, queries, k, scorer, batch, threads) -> dict:
+    """Warmup shared by the executor and the collection (the reference's
+    ``warmup_driver``): every query through ``target.search``, then, with
+    `batch`, the whole list through ``target.search_batch``, on a pool of
+    `threads` threads. Every query goes through, not one per tape: the
+    launch shapes depend on more than the tape (C2 / fcap buckets, batch
+    rows). Returns {"programs": variants first recorded during the call
+    (utils/seal.py), "variants": calls submitted, "seconds"}."""
+    import concurrent.futures as cf
+
+    t0 = time.perf_counter()
+    before = seal.variants_recorded()
+    qs = list(queries)
+    with cf.ThreadPoolExecutor(max_workers=max(1, threads)) as pool:
+        futs = [pool.submit(target.search, q, k=k, scorer=scorer) for q in qs]
+        if batch and qs:
+            futs.append(pool.submit(target.search_batch, qs, k=k,
+                                    scorer=scorer))
+        for f in futs:
+            f.result()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"programs": seal.variants_recorded() - before,
+            "variants": len(qs) + (1 if batch and qs else 0),
+            "seconds": time.perf_counter() - t0}
 
 
 def _resolve_device(device) -> torch.device:
@@ -184,6 +223,17 @@ class Group:
     arrays: dict  # host inputs uploaded by run_group
     ctx: dict = field(default_factory=dict)  # host-side phrase parameters
 
+    @property
+    def variant(self) -> tuple:
+        """This launch's shape, as the seal records it (utils/seal.py):
+        route (with the tape where the launch depends on it), batch rows,
+        slots, cell columns (a posmask group's kernel columns), and the
+        phrase routes' C / C2 / fcap buckets."""
+        c = self.ctx
+        return (self.kind, self.tape if self.kind in TAPE_KINDS else None,
+                self.B, self.T, self.arrays["cs"].shape[1], c.get("C"),
+                c.get("C2"), c.get("fcaps"))
+
 
 class Executor:
     """Per-segment search session on one device: ``"cuda"`` (the default;
@@ -201,6 +251,15 @@ class Executor:
     with df >= ``posmask_min_df`` within ``posmask_cache_bytes``)."""
 
     def __init__(self, seg: SegmentData, device="cuda"):
+        if seg.n_docs >= MAX_SEGMENT_DOCS:
+            # the reference's envelope (its batch programs carry local
+            # docids as f32 rows, exact below 2^24); the port keeps it so a
+            # segment serves in both packages alike
+            raise ValueError(
+                f"segment has {seg.n_docs} docs >= 2^24 "
+                "(f32-exact docid envelope, limits.MAX_SEGMENT_DOCS): "
+                "split it across executors instead"
+            )
         self.device = _resolve_device(device)
         self.seg = seg
         hp = np.ascontiguousarray(seg.hit_planes, dtype=np.uint32)
@@ -222,6 +281,11 @@ class Executor:
         self._deleted_tiles = None
         self._max_freq_cache: dict = {}
         cfg = get_config()
+        # the hot-term caches are built at first use, once, under a lock:
+        # warmup searches from many threads, and N racing builds would
+        # hold N copies of a cache (~1.9 GB on the bench deployment)
+        self._cache_lock = threading.Lock()
+        self._serial = next(_SERIALS)
         self._tf_planes = None
         self._hot = self._hot_terms(cfg.hot_cache_bytes, cfg.hot_cache_min_df,
                                     seg.n_windows * TILE * TILE * 4)
@@ -295,7 +359,10 @@ class Executor:
         (1, 1, 128, 128) zero dummy when none qualify — the kernels never
         read it when every cid is -1)."""
         if self._tf_planes is None:
-            self._tf_planes = self._build_tf_planes()
+            with self._cache_lock:
+                if self._tf_planes is None:
+                    seal.record(("tf_planes", self._serial))
+                    self._tf_planes = self._build_tf_planes()
         return self._tf_planes
 
     def _build_tf_planes(self) -> torch.Tensor:
@@ -320,7 +387,10 @@ class Executor:
         """(W, C, PW, 128, 128) i32 position words of the posmask hot
         terms (a (1, 1, 1, 1, 1) zero dummy when none qualify)."""
         if self._pos_planes is None:
-            self._pos_planes = self._build_pos_planes()
+            with self._cache_lock:
+                if self._pos_planes is None:
+                    seal.record(("pos_planes", self._serial))
+                    self._pos_planes = self._build_pos_planes()
         return self._pos_planes
 
     def _build_pos_planes(self) -> torch.Tensor:
@@ -399,20 +469,15 @@ class Executor:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     # -------------------------------------------------------------- search
-    def warmup(self, queries, k: int = 10, scorer: str = "bm25") -> dict:
-        """Run every query once, serially (builds the kernels and the
-        hot-term caches before serving), then the whole list as one batch.
-        Returns {"variants", "seconds"}."""
-        t0 = time.perf_counter()
-        qs = list(queries)
-        for q in qs:
-            self.search(q, k=k, scorer=scorer)
-        if qs:
-            self.search_batch(qs, k=k, scorer=scorer)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return {"variants": len(qs) + bool(qs),
-                "seconds": time.perf_counter() - t0}
+    def warmup(self, queries, k: int = 10, scorer: str = "bm25",
+               batch: bool = True, threads: int = 8) -> dict:
+        """Run every query, and with `batch` the whole list as one batch,
+        on `threads` threads (warmup_driver): the kernel library, the
+        hot-term caches and every launch shape the workload touches are
+        built or recorded before serving, so ``seal_programs`` can then
+        hold serving to them. Returns {"programs", "variants",
+        "seconds"}."""
+        return warmup_driver(self, queries, k, scorer, batch, threads)
 
     def search(self, query, k: int = 10, scorer: str = "bm25", stats=None,
                df_of=None, doc_set=None) -> List[SearchResult]:
@@ -491,6 +556,7 @@ class Executor:
         g = groups[0]
         if g.kind in ("lazyph", "lazyhost"):
             g = self._prep_phrase_compound(g.tape, g.members, g.ctx)
+        seal.record(("match_ids", *g.variant))
         a = {n: self._put(v) for n, v in g.arrays.items()}
         if g.kind in ("flat", "fused"):
             scores = self._score_tiles(g, a, scorer)[0]
@@ -627,6 +693,7 @@ class Executor:
     def run_group(self, g: Group, k: int, scorer: str):
         """Launch one group; returns device (values (B, k) f32, local docids
         (B, k) int64, resolved (B,) bool for lazyph groups, else None)."""
+        seal.record(g.variant)
         a = {n: self._put(v) for n, v in g.arrays.items()}
         if g.kind in ("flat", "fused"):
             return (*exact_window_topk(*self._score_tiles(g, a, scorer), k),
@@ -929,6 +996,7 @@ class Executor:
         """One pure-phrase query as a compound group of one (every
         candidate verified): host (values, local ids)."""
         g = self._prep_phrase_compound(plan.tape, [(0, plan)], ctx)
+        seal.record(g.variant)
         a = {n: self._put(v) for n, v in g.arrays.items()}
         scores = self._compound_scores(g, a, scorer)
         gv, gi = topk_lowest_index(scores.reshape(1, -1), k)

@@ -16,8 +16,8 @@ The port's sources build the port's Executor on the collection's device
 (``IndexSourcesCollection(device="cuda")``, the default, or ``"cpu"``);
 ``search_batch`` launches every source's batch before it finishes any;
 ``launch_batch`` / ``finish_batch`` split it, so a caller can launch the
-next batch before finishing this one. Rich-match (``exec_rich``) is not
-ported yet.
+next batch before finishing this one. ``exec_rich`` runs rich-match per
+source; ``warmup`` sends a workload through ``warmup_driver``.
 """
 
 from __future__ import annotations
@@ -200,6 +200,34 @@ class IndexSourcesCollection:
             self.commit()
         out = [src.executor().match_ids(query) for src in self.sources]
         return np.unique(np.concatenate(out)) if out else np.zeros(0, np.uint32)
+
+    def exec_rich(self, query, on_match, **kwargs) -> int:
+        """Default rich-match mode across generations: per-source
+        exec_rich under the installed masked registries (newest source
+        first). Callback order is ascending per source; cross-source
+        merging is the caller's concern, exactly the reference's
+        multi-source contract (exec.h:55-62). Returns total matches."""
+        from trinity_tpu_torch.exec.richmatch import exec_rich as _exec_rich
+
+        if not self._committed:
+            self.commit()
+        total = 0
+        for src in self.sources:
+            if not src.index_empty():
+                total += _exec_rich(src.executor(), query, on_match, **kwargs)
+        return total
+
+    def warmup(self, queries, k: int = 10, scorer: str = "bm25",
+               batch: bool = True, threads: int = 8) -> dict:
+        """Every query, and with `batch` the whole list, through the
+        collection on `threads` threads (exec/executor.py:warmup_driver):
+        each source's executor builds its caches and runs its launch
+        shapes. Returns {"programs", "variants", "seconds"}."""
+        from trinity_tpu_torch.exec.executor import warmup_driver
+
+        if not self._committed:
+            self.commit()  # once, before the threads search
+        return warmup_driver(self, queries, k, scorer, batch, threads)
 
     # ------------------------------------------------------------ persist
     def persist(self, root: str) -> None:

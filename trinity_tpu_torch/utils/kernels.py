@@ -12,7 +12,10 @@ division and sqrt stay on (nvcc's defaults) and no multiply-add is
 contracted, so the kernels keep the reference's f32 operation order.
 
 ``launches`` counts, per kernel, the launches made through ``launch`` —
-one per wrapper call that reaches the card. ``reset_launches`` zeroes them.
+one per wrapper call that reaches the card, exact under threads (warmup
+searches from a thread pool). ``reset_launches`` zeroes them. ``load``
+builds and binds the library once per process, whichever threads reach
+it first.
 ``bound_ms`` turns the bytes and f32 operations a call must move and do
 (the ``*_bytes`` functions of ``ops/``) into the least time an H100 could
 take for it.
@@ -25,7 +28,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+
+from trinity_tpu_torch.utils import seal
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -55,6 +61,8 @@ H100_F32_PER_S = 67e12
 launches = {"decode": 0, "flat": 0, "tape": 0, "posmask": 0}
 build_info: dict = {}
 _lib = None
+_load_lock = threading.Lock()  # one build and bind per process
+_count_lock = threading.Lock()  # launches stay exact under threads
 
 
 def bound_ms(nbytes: int, f32_ops: int = 0):
@@ -67,8 +75,9 @@ def bound_ms(nbytes: int, f32_ops: int = 0):
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def _nvcc() -> str:
@@ -95,7 +104,8 @@ def build() -> str:
     if not os.path.exists(path):
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
+        # per process and thread: no two builders share an object path
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         objs = [f"{tmp}.{s}.o" for s in SOURCES]
         procs = [
             subprocess.Popen(
@@ -121,10 +131,18 @@ def build() -> str:
 
 
 def load():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; threads that reach
+    the first call together wait for one build). A build or first bind in
+    the process is a variant for the seal (utils/seal.py)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
+    if _lib is not None:
+        return _lib
+    with _load_lock:
+        if _lib is not None:
+            return _lib
+        path = build()
+        seal.record(("kernels", os.path.basename(path)))
+        lib = ctypes.CDLL(path)
         kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
                  "l": ctypes.c_longlong}
         for name, sig in _SIGNATURES.items():
@@ -163,4 +181,5 @@ def launch(counter: str, entry: str, *args) -> None:
     if rc != 0:
         msg = lib.trin_error_string(rc).decode()
         raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")
-    launches[counter] += 1
+    with _count_lock:
+        launches[counter] += 1
