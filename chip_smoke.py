@@ -40,8 +40,8 @@ non-zero):
    use_posmask=False plans the 18 phrases) and on a pruned chunk (16
    gathered windows, one a duplicate with zeroed cells, half the queries
    of the largest flat pruned group resolved), K2 on each flat group (T = 2,
-   4, 8) and on one query alone (search()'s B = 1), K3 on the OR-of-AND
-   group, K4 on
+   4, 8), on one query alone (search()'s B = 1) and on phase 11's mesh
+   shard 0's largest flat group (W = 16), K3 on the OR-of-AND group, K4 on
    the first 8-term chunk of the posmask hot cache and on the bigram and
    trigram groups' uncached cells, all over every window;
 5. the main path: Executor(seg, "cuda"), warmup, pipelined launch_batch /
@@ -89,11 +89,43 @@ non-zero):
    with warmup's seconds at threads=8 and 1 printed (e); the decode
    kernel must launch in (a)-(d) (f). Phase 4 times K1 on this phase's
    two new shapes too (rich-match's cells with offsets; intersect at
-   T = 64).
+   T = 64);
+10. the percolator (BASELINE config #4) at tools/measure_percolator.py's
+   two deployments (its query and document generators, same seeds, and
+   its host_eval, copied here): 5,000 registered queries (40% AND of 2-3
+   terms, 25% OR, 15% NOT, 10% 2-of-4, 10% phrase bigrams and trigrams,
+   Zipf s = 1.07 over 3,000 terms) against 8 batches of 2,048 documents of
+   40-80 tokens, then 50,000 queries against 8 batches of 512. The card's
+   matrix must equal the numpy postfix evaluation of the same packed
+   programs on every batch, the port's CPU run on batch 0, and
+   match_stream must equal match_batch; it prints docs/s (match_stream),
+   batch p50/p99 (match_batch), the registration's seconds, the device
+   evaluation's ms (CUDA events, upload included) against the host
+   incidence's ms, the host denominator's docs/s and the peak device
+   bytes;
+11. the mesh (BASELINE config #5): the bench segment split into 4 shards
+   of 16 windows (split_segment, before phase 4, which times K2 on shard
+   0's largest flat group as the mesh plans it), MeshExecutor over them,
+   all on the one card. Its first launch_batch / finish_batch over the 120
+   queries, with the kernel counts zeroed just before it and read just
+   after (the mesh path's launches), must match the baseline engine's
+   top-10 on 120/120, with ids and scores bit-equal to phase 5's executor
+   (a), and every shard's executor must launch K1-K4 in it (g); under a
+   mask of every
+   7th global docid, equal to a single executor with the same mask (b);
+   search_pruned_batch equal to search_batch on the 102 boolean queries
+   (c); match_ids and exec_rich equal to the single executor's on the 18
+   phrases and the 8 rarest boolean queries (d); a MeshSourcesCollection
+   of phase 8's three generations (the erase-only one as four empty
+   shards) equal to phase 8's collection, ids exactly and scores within
+   2 ulp (e); after its warmup, a strict seal with 0 misses over the mix
+   (f). It prints the split's seconds and the mesh's QPS and search()
+   p50/p99 beside phase 5's.
 
 The last lines: the check that no trinity_tpu module was loaded, one JSON
-object {"kernels": [...]}, the nvidia-smi line (name, power limit), and
-{"ok": true, "device": {...}}.
+object {"kernels": [...]} (launches: phase 5's main path; mesh_launches:
+phase 11's first mesh batch), the nvidia-smi line (name, power limit), and {"ok": true,
+"device": {...}}.
 
 With --profile it runs phases 1-3 and then, in place of 4-8, the
 measurement behind PERF.md's "Where the time goes": the host split of a
@@ -111,6 +143,7 @@ the three ways; it prints each number's medians. It prints no result
 line.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -432,7 +465,6 @@ def kernel_cases(ex, queries):
     can time an older tree too)."""
     import torch
 
-    from trinity_tpu_torch.ops import fusedscore as fs
     from trinity_tpu_torch.ops import posmask as pm
     from trinity_tpu_torch.ops import postings as po
 
@@ -485,29 +517,7 @@ def kernel_cases(ex, queries):
     flats += ex.plan_batch([queries[flats[0].members[0][0]]])
     fused = next(g for g in groups if g.kind == "fused")
     for g, key in [(g, "flat") for g in flats] + [(fused, "tape")]:
-        a = {n: put(v) for n, v in g.arrays.items()}
-        head = (ex.bmeta, ex.planes, a["cs"], a["cn"], a["weights"])
-        what = (f"B={g.B} with {len(g.members)} queries, T={g.T}, "
-                f"{int((g.arrays['cids'] >= 0).sum())} cached slots")
-        if key == "flat":
-            tail = (a["flags"], a["kmin"], a["cids"], ex.tf_planes,
-                    seg.n_docs, None)
-            call = lambda h=head, t=tail: fs.fused_flat_score_tiles(
-                *h, *t, scorer_name="bm25")
-            ref = lambda h=head, t=tail: fs.fused_flat_score_tiles_ref(
-                *h, *t, scorer_name="bm25")
-            nw = 2 * g.T + 1
-        else:
-            tail = (a["cids"], ex.tf_planes, seg.n_docs, None)
-            call = lambda h=head, t=tail, tp=g.tape: fs.fused_score_tiles(
-                *h, *t, tape=tp, scorer_name="bm25")
-            ref = lambda h=head, t=tail, tp=g.tape: fs.fused_score_tiles_ref(
-                *h, *t, tape=tp, scorer_name="bm25")
-            nw = g.arrays["weights"].shape[1]
-        nb = lambda a=a, B=g.B, nw=nw: fs.score_bytes(
-            ex.bmeta, ex.planes, a["cs"], a["cn"], a["cids"], B, None, nw)
-        cases.append((key, what, call, ref, nb,
-                      lambda tp=g.tape: program_size(tp)))
+        cases.append(score_case(ex, g, key))
     PW = ex._pw_words
     tids = sorted(ex._pos_hot, key=ex._pos_hot.get)[:8]
     sources = [("hot chunk", po.compute_cells(seg, tids))]
@@ -638,6 +648,50 @@ def program_size(tape):
     return f"program of {len(prog)} ops in {nreg} registers"
 
 
+def score_case(ex, g, key, where=""):
+    """The phase-4 case of K2 (key "flat") or K3 ("tape") on group `g` of
+    executor `ex`: (kernel, what, call, plain call, byte-count call,
+    detail call)."""
+    import torch
+
+    from trinity_tpu_torch.ops import fusedscore as fs
+
+    seg = ex.seg
+    a = {n: torch.from_numpy(v).to(ex.device) for n, v in g.arrays.items()}
+    head = (ex.bmeta, ex.planes, a["cs"], a["cn"], a["weights"])
+    what = (f"{where}B={g.B} with {len(g.members)} queries, T={g.T}, "
+            f"{int((g.arrays['cids'] >= 0).sum())} cached slots")
+    if key == "flat":
+        tail = (a["flags"], a["kmin"], a["cids"], ex.tf_planes,
+                seg.n_docs, None)
+        call = lambda h=head, t=tail: fs.fused_flat_score_tiles(
+            *h, *t, scorer_name="bm25")
+        ref = lambda h=head, t=tail: fs.fused_flat_score_tiles_ref(
+            *h, *t, scorer_name="bm25")
+        nw = 2 * g.T + 1
+    else:
+        tail = (a["cids"], ex.tf_planes, seg.n_docs, None)
+        call = lambda h=head, t=tail, tp=g.tape: fs.fused_score_tiles(
+            *h, *t, tape=tp, scorer_name="bm25")
+        ref = lambda h=head, t=tail, tp=g.tape: fs.fused_score_tiles_ref(
+            *h, *t, tape=tp, scorer_name="bm25")
+        nw = g.arrays["weights"].shape[1]
+    nb = lambda a=a, B=g.B, nw=nw: fs.score_bytes(
+        ex.bmeta, ex.planes, a["cs"], a["cn"], a["cids"], B, None, nw)
+    return key, what, call, ref, nb, lambda tp=g.tape: program_size(tp)
+
+
+def shard_cases(mex, queries):
+    """K2 on one mesh shard's largest flat group, as the mesh plans it
+    (shard 0's executor, the mesh's statistics): phase 11's shape."""
+    ex = mex.executors[0]
+    groups = ex.plan_batch(queries, "bm25", 10, *mex._stats(None, None))
+    g = max((g for g in groups if g.kind == "flat"),
+            key=lambda g: g.B * g.T)
+    return [score_case(ex, g, "flat", where=f"mesh shard 0 of "
+                       f"{len(mex.shards)}, W={ex.seg.n_windows}: ")]
+
+
 def position_elements(bmeta, planes, cs, cn):
     """Position elements of the cells' in-window postings (the positions a
     posmask call ORs in): the sum of their freqs."""
@@ -662,18 +716,22 @@ KERNEL_ROWS = {  # counter: (name, source, the TPU kernel it replaces)
 }
 
 
-def phase_kernels(seg, queries):
-    """Each kernel against its plain version at the main path's shapes:
-    integer tiles bit-equal, scores within 2 ulp; median times, and the
-    bound from the bytes (and f32 operations) the call must move."""
+def phase_kernels(seg, queries, shards):
+    """Each kernel against its plain version at the main path's shapes
+    (and K2 at a mesh shard's, from `shards`): integer tiles bit-equal,
+    scores within 2 ulp; median times, and the bound from the bytes (and
+    f32 operations) the call must move."""
     import torch
 
     from trinity_tpu_torch import Executor
+    from trinity_tpu_torch.parallel import MeshExecutor
     from trinity_tpu_torch.utils import kernels
 
     ex = Executor(seg, device="cuda")
+    mex = MeshExecutor(shards)  # every visible card: the one
     rows = {}
-    for key, what, call, ref, nbytes, detail in kernel_cases(ex, queries):
+    for key, what, call, ref, nbytes, detail in (
+            kernel_cases(ex, queries) + shard_cases(mex, queries)):
         got, want = call(), ref()
         torch.cuda.synchronize()
         pair = (got, want) if isinstance(got, tuple) else ((got,), (want,))
@@ -701,7 +759,7 @@ def phase_kernels(seg, queries):
             plain_ms=plain, bound_ms=bound, bound_by=by,
             # no single PyTorch call computes any of these functions
             library_ms=None))
-    del ex
+    del ex, mex
     torch.cuda.empty_cache()
     return rows
 
@@ -882,7 +940,7 @@ def phase_slice(seg, queries, base_topk, phrase):
         f"hot planes {nb(ex.tf_planes)} for {len(ex._hot)} terms, posmask "
         f"cache {nb(ex.pos_planes)} for {len(ex._pos_hot)} terms, PW "
         f"{ex._pw_words}); peak allocated {torch.cuda.max_memory_allocated()}")
-    return launches
+    return launches, ours, m
 
 
 def phase_lazy(seg, queries, base_topk, phrase):
@@ -1264,7 +1322,7 @@ def rich_stream(ex_or_coll, q, cap=RICH_STREAM_CAP):
             raise AbortSearch
 
     t0 = time.perf_counter()
-    if hasattr(ex_or_coll, "sources"):
+    if hasattr(ex_or_coll, "exec_rich"):  # a collection or a mesh
         ex_or_coll.exec_rich(q, on_match)
     else:
         exec_rich(ex_or_coll, q, on_match)
@@ -1459,6 +1517,436 @@ def phase_rich(seg, queries, phrase, coll):
         raise RuntimeError(f"the decode kernel never launched: {launches}")
 
 
+# Phase 10's deployment: tools/measure_percolator.py's (BASELINE config #4)
+PERC_N_QUERIES = 5000
+PERC_VOCAB = 3000
+PERC_DOC_BATCH = 2048
+PERC_DOC_LEN = (40, 81)
+PERC_N_BATCHES = 8
+PERC_ZIPF_S = 1.07
+PERC_SCALE = (50_000, 512)  # the tool's scale_50k: queries, batch docs
+
+
+def perc_queries(rng, n_queries=PERC_N_QUERIES):
+    """tools/measure_percolator.py:build_queries (the same draws), as
+    texts: 40% AND of 2-3 terms, 25% OR of 2-3, 15% NOT, 10% 2-of-4, 10%
+    phrase bigrams and trigrams, Zipf-drawn from PERC_VOCAB terms."""
+    import numpy as np
+
+    zipf = 1.0 / np.arange(1, PERC_VOCAB + 1) ** PERC_ZIPF_S
+    zipf /= zipf.sum()
+    pick = lambda: int(rng.choice(PERC_VOCAB, p=zipf))
+
+    def distinct(n):
+        out = []
+        while len(out) < n:
+            t = pick()
+            if t not in out:
+                out.append(t)
+        return out
+
+    texts = []
+    for i in range(n_queries):
+        kind = i % 20
+        if kind < 8:
+            ts = distinct(2 if kind < 5 else 3)
+            texts.append(" ".join(f"p{t}" for t in ts))
+        elif kind < 13:
+            ts = distinct(2 if kind < 11 else 3)
+            texts.append(" OR ".join(f"p{t}" for t in ts))
+        elif kind < 16:
+            a, b = distinct(2)
+            texts.append(f"p{a} NOT p{b}")
+        elif kind < 18:
+            ts = distinct(4)
+            texts.append("[" + ",".join(f"p{t}" for t in ts) + "]/2")
+        else:
+            ts = distinct(2 if kind == 18 else 3)
+            texts.append('"' + " ".join(f"p{t}" for t in ts) + '"')
+    return texts
+
+
+def perc_docs(rng, n_docs):
+    """tools/measure_percolator.py:gen_docs (the same draws)."""
+    import numpy as np
+
+    zipf = 1.0 / np.arange(1, PERC_VOCAB + 1) ** PERC_ZIPF_S
+    zipf /= zipf.sum()
+    docs = []
+    for _ in range(n_docs):
+        ln = int(rng.integers(*PERC_DOC_LEN))
+        docs.append([f"p{int(t)}" for t in rng.choice(PERC_VOCAB, ln, p=zipf)])
+    return docs
+
+
+def host_eval(ops, incidence, ph_inc):
+    """tools/measure_percolator.py:host_eval: a per-query numpy postfix
+    loop over the documents (the host denominator and the check)."""
+    import numpy as np
+
+    n_docs = incidence.shape[0]
+    n_q = ops.shape[0]
+    out = np.zeros((n_docs, n_q), bool)
+    for qi in range(n_q):
+        stack = []
+        for op, arg in ops[qi]:
+            if op == 0:
+                continue
+            elif op == 1:
+                stack.append(np.zeros(n_docs, np.int32))
+            elif op == 2:
+                stack.append(np.ones(n_docs, np.int32))
+            elif op == 3:
+                stack.append(incidence[:, arg].astype(np.int32))
+            elif op == 4:
+                stack.append(ph_inc[:, arg].astype(np.int32))
+            elif op == 5:
+                b, a = stack.pop(), stack.pop()
+                stack.append(((a > 0) & (b > 0)).astype(np.int32))
+            elif op == 6:
+                b, a = stack.pop(), stack.pop()
+                stack.append(((a > 0) | (b > 0)).astype(np.int32))
+            elif op == 7:
+                b, a = stack.pop(), stack.pop()
+                stack.append(((a > 0) & (b == 0)).astype(np.int32))
+            elif op == 8:
+                stack.append((stack.pop() == 0).astype(np.int32))
+            elif op == 9:
+                stack.append(np.ones_like(stack.pop()))
+            elif op == 10:
+                b, a = stack.pop(), stack.pop()
+                stack.append(a + b)
+            elif op == 11:
+                stack.append((stack.pop() >= arg).astype(np.int32))
+        out[:, qi] = stack[0] > 0
+    return out
+
+
+def percolator_config(n_queries, doc_batch):
+    """One deployment of phase 10 on the card: register, then
+    PERC_N_BATCHES batches of `doc_batch` documents; checks and numbers
+    (returned as a dict)."""
+    import numpy as np
+    import torch
+
+    from trinity_tpu_torch import Percolator
+    from trinity_tpu_torch.percolator import finish_eval, launch_eval
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(77)
+    perc = Percolator(device="cuda")
+    t0 = time.perf_counter()
+    for q in perc_queries(rng, n_queries):
+        perc.register(q)
+    ops, uniq, staged = perc._epoch()  # packed and staged: one epoch
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    batches = [perc_docs(rng, doc_batch) for _ in range(PERC_N_BATCHES)]
+
+    # the host denominator on every batch: incidence + numpy postfix, which
+    # is also what the card's matrices are held to
+    host_s, inc_ms, want = [], [], []
+    for docs in batches:
+        t1 = time.perf_counter()
+        inc, ph = perc.build_incidence(docs, uniq)
+        inc_ms.append((time.perf_counter() - t1) * 1e3)
+        want.append(host_eval(ops, inc, ph))
+        host_s.append(time.perf_counter() - t1)
+    # the device evaluation alone (upload included), by CUDA events
+    dev_ms = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for docs in batches:
+        inc, ph = perc.build_incidence(docs, uniq)
+        torch.cuda.synchronize()
+        ev[0].record()
+        out = launch_eval(staged, inc, ph)
+        ev[1].record()
+        got = finish_eval(out)
+        dev_ms.append(ev[0].elapsed_time(ev[1]))
+    np.testing.assert_array_equal(got, want[-1])
+    # sequential match_batch: each batch's latency, each against the host
+    lat = []
+    for docs, w in zip(batches, want):
+        t1 = time.perf_counter()
+        got = perc.match_batch(docs)
+        lat.append((time.perf_counter() - t1) * 1e3)
+        np.testing.assert_array_equal(got, w)
+    # the stream (host incidence of batch k+1 beside batch k's evaluation)
+    t1 = time.perf_counter()
+    streamed = list(perc.match_stream(batches))
+    wall = time.perf_counter() - t1
+    for g, w in zip(streamed, want):
+        np.testing.assert_array_equal(g, w)
+    peak = torch.cuda.max_memory_allocated() - base
+    # the port's CPU run on batch 0
+    cpu = Percolator(device="cpu")
+    for q in perc_queries(np.random.default_rng(77), n_queries):
+        cpu.register(q)
+    t1 = time.perf_counter()
+    np.testing.assert_array_equal(cpu.match_batch(batches[0]), want[0])
+    cpu_s = time.perf_counter() - t1
+    return {
+        "queries": perc.n_queries, "doc_batch": doc_batch,
+        "unique phrases": len(uniq), "terms": len(perc._vocab),
+        "program slots": ops.shape[1], "stack depth": staged["depth"],
+        "docs/s": PERC_N_BATCHES * doc_batch / wall,
+        "batch p50 ms": float(np.percentile(lat, 50)),
+        "batch p99 ms": float(np.percentile(lat, 99)),
+        "register s": reg_s,
+        "device eval ms (median)": float(np.median(dev_ms)),
+        "host incidence ms (median)": float(np.median(inc_ms)),
+        "host docs/s": doc_batch / float(np.median(host_s)),
+        "cpu port batch 0 s": cpu_s,
+        "peak device bytes": int(peak),
+        "matches (batch 0)": int(want[0].sum()),
+    }
+
+
+def phase_percolator():
+    """Phase 10: the percolator on the card (BASELINE config #4), at
+    tools/measure_percolator.py's two deployments."""
+    for n_q, batch in ((PERC_N_QUERIES, PERC_DOC_BATCH), PERC_SCALE):
+        t0 = time.perf_counter()
+        r = percolator_config(n_q, batch)
+        log(f"[percolator] {n_q} queries x {PERC_N_BATCHES} batches of "
+            f"{batch} docs: the card's matrices equal the host postfix eval "
+            f"on {PERC_N_BATCHES}/{PERC_N_BATCHES} batches, the port's CPU "
+            f"run on batch 0, and match_stream equals match_batch; "
+            f"{time.perf_counter() - t0:.1f}s")
+        log("[percolator]   " + json.dumps(r))
+        if not r["matches (batch 0)"]:
+            raise RuntimeError("percolator: nothing matched")
+
+
+def split_shards(seg, n_shards=4):
+    """Phase 11's shards: the bench segment split by split_segment."""
+    from trinity_tpu_torch.parallel import split_segment
+
+    t0 = time.perf_counter()
+    shards = split_segment(seg, n_shards)
+    log(f"[mesh] split_segment into {n_shards} shards "
+        f"{time.perf_counter() - t0:.2f}s: "
+        f"{[(s.n_docs, s.n_windows) for s in shards]} (docs, windows)")
+    return shards
+
+
+def blocking_split(run, queries):
+    """Host ms of one blocking batch on `run` (an executor or a mesh):
+    (launch_batch, then the wait for the card, then finish_batch)."""
+    import torch
+
+    t0 = time.perf_counter()
+    h = run.launch_batch(queries, k=10)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    run.finish_batch(h)
+    t3 = time.perf_counter()
+    return [(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3]
+
+
+@contextlib.contextmanager
+def shard_tally(mex):
+    """Per shard of `mex`, the kernel launches its executor makes inside
+    the mesh's launch_batch / finish_batch, which call the shards one after
+    another on the caller's thread: each shard executor's launch_groups
+    and finish_rows add the change of the counts across the call to that
+    shard's tally while the block runs."""
+    from trinity_tpu_torch.utils import kernels
+
+    tally = [dict.fromkeys(kernels.launches, 0) for _ in mex.executors]
+
+    def counted(fn, t):
+        def run(*args, **kwargs):
+            before = dict(kernels.launches)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for k in t:
+                    t[k] += kernels.launches[k] - before[k]
+        return run
+
+    for ex, t in zip(mex.executors, tally):
+        ex.launch_groups = counted(ex.launch_groups, t)
+        ex.finish_rows = counted(ex.finish_rows, t)
+    try:
+        yield tally
+    finally:
+        for ex in mex.executors:
+            del ex.launch_groups, ex.finish_rows
+
+
+def phase_mesh(seg, shards, queries, phrase, base_topk, single, m5, coll):
+    """Phase 11: the mesh on the card (BASELINE config #5): four shards
+    of the bench segment on cuda:0 against phase 5's single executor
+    (`single`: its 120 results, `m5`: its end-to-end numbers), under a
+    mask, pruned, match_ids / exec_rich, phase 8's generations sharded
+    against phase 8's collection (`coll`), warmup and the strict seal, and
+    each shard's kernels. Returns the kernel launches of the mesh's first
+    batch."""
+    import numpy as np
+    import torch
+
+    from trinity_tpu_torch import Executor
+    from trinity_tpu_torch.parallel import MeshExecutor, MeshSourcesCollection
+    from trinity_tpu_torch.utils import kernels
+    from trinity_tpu_torch.utils.seal import (
+        post_seal_misses,
+        seal_programs,
+        unseal_programs,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mex = MeshExecutor(shards)  # every visible card: four shards on the one
+
+    # (a) and (g): the mesh's first batch (each shard builds its hot caches
+    # in it), with the counts zeroed just before it and read just after:
+    # parity with the baseline engine, bit-equal to phase 5's single
+    # executor, and K1-K4 launched by every shard's executor
+    with shard_tally(mex) as per_shard:
+        kernels.reset_launches()
+        h = mex.launch_batch(queries, k=10)
+        got = mex.finish_batch(h)
+        launches = dict(kernels.launches)
+    parity("mesh", queries, base_topk, got)
+    same_results("mesh (a)", queries, got, single, exact=True)
+    log(f"[mesh] (a) launch_batch/finish_batch on {len(shards)} shards on "
+        f"{sorted({str(d) for d in mex.devices})}: {len(queries)}/"
+        f"{len(queries)} ids and scores bit-equal to phase 5's executor")
+    log(f"[mesh] (g) kernel launches of the mesh's batch {launches}; by "
+        f"shard {per_shard}")
+    by_shard = {k: sum(t[k] for t in per_shard) for k in launches}
+    if by_shard != launches:
+        raise RuntimeError(f"mesh (g): the shards' tallies {by_shard} are "
+                           f"not the batch's launches {launches}")
+    if not all(n > 0 for t in per_shard for n in t.values()):
+        raise RuntimeError(f"mesh (g): a shard left a kernel unlaunched: "
+                           f"{per_shard}")
+    w = mex.warmup(queries, k=10)
+    log(f"[mesh] warmup {w['seconds']:.2f}s")
+
+    # (b) every 7th global docid masked, against a single executor
+    ex = Executor(seg, "cuda")
+    masked = np.arange(0, seg.n_docs, 7)
+    mex.set_masked_local_docs(masked)
+    ex.set_masked_local_docs(masked)
+    got_m = mex.search_batch(queries, k=10)
+    same_results("mesh (b)", queries, got_m, ex.search_batch(queries, k=10),
+                 exact=True)
+    dead = set(seg.doc_map[masked].tolist())
+    if dead & {r.doc_id for g in got_m for r in g}:
+        raise RuntimeError("mesh (b): a masked document came back")
+    mex.set_masked_local_docs(None)
+    ex.set_masked_local_docs(None)
+    log(f"[mesh] (b) {len(masked)} masked docids (every 7th): "
+        f"{len(queries)}/{len(queries)} bit-equal to the single executor "
+        f"under the same mask")
+
+    # (c) pruned equals dense on the boolean queries
+    bool_qs = [q for q, p in zip(queries, phrase) if not p]
+    phrase_qs = [q for q, p in zip(queries, phrase) if p]
+    t0 = time.perf_counter()
+    pruned = mex.search_pruned_batch(bool_qs, k=10,
+                                     chunk_windows=PRUNED_CHUNK)
+    dt = time.perf_counter() - t0
+    same_results("mesh (c)", bool_qs, pruned,
+                 [g for g, p in zip(got, phrase) if not p], exact=True)
+    log(f"[mesh] (c) search_pruned_batch equals search_batch on "
+        f"{len(bool_qs)}/{len(bool_qs)} boolean queries in {dt:.3f}s")
+
+    # (d) match_ids and exec_rich: the 18 phrases, the 8 rarest boolean
+    counts = [len(ex.match_ids(q)) for q in bool_qs]
+    rare = [bool_qs[i] for i in np.argsort(counts, kind="stable")
+            if counts[i] > 0][:8]
+    sizes, cut = [], 0
+    t0 = time.perf_counter()
+    for q in phrase_qs + rare:
+        a, b = mex.match_ids(q), ex.match_ids(q)
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"mesh (d) match_ids {q!r}: {len(a)} != "
+                               f"{len(b)}")
+        (sa, ca, _), (sb, cb, _) = rich_stream(mex, q), rich_stream(ex, q)
+        if sa != sb or ca != cb:
+            raise RuntimeError(f"mesh (d) exec_rich {q!r}: streams differ")
+        sizes.append(len(a))
+        cut += ca
+    log(f"[mesh] (d) match_ids and exec_rich streams equal the single "
+        f"executor's on {len(sizes)}/{len(sizes)} queries ({cut} streams "
+        f"compared over their first {RICH_STREAM_CAP}): {sizes} ids; "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    # where a blocking batch's time goes, the mesh beside one executor
+    for name, run in (("mesh", mex), ("single executor", ex)):
+        split = np.median([blocking_split(run, queries) for _ in range(5)],
+                          axis=0)
+        log(f"[mesh] one blocking batch of {len(queries)} on the {name}: "
+            f"launch {split[0]:.3f} ms, wait for the card {split[1]:.3f} "
+            f"ms, finish {split[2]:.3f} ms (medians of 5)")
+    del ex
+    torch.cuda.empty_cache()
+
+    # end-to-end numbers beside phase 5's
+    m = slice_metrics(mex, queries, phrase)
+    med = lambda d, k: float(np.median(d[k]))
+    log(f"[mesh] QPS {med(m, 'mix QPS'):.2f} (loops "
+        f"{', '.join(f'{x:.2f}' for x in m['mix QPS'])}) against phase 5's "
+        f"{med(m5, 'mix QPS'):.2f} (ratio "
+        f"{med(m, 'mix QPS') / med(m5, 'mix QPS'):.3f}), {len(queries)} "
+        f"queries x 5 reps")
+    for name in ("boolean", "phrase"):
+        log(f"[mesh] {name}: QPS {med(m, f'{name} QPS'):.2f} (phase 5 "
+            f"{med(m5, f'{name} QPS'):.2f}); search() p50 "
+            f"{med(m, f'{name} p50 ms'):.3f} ms (phase 5 "
+            f"{med(m5, f'{name} p50 ms'):.3f}), p99 "
+            f"{med(m, f'{name} p99 ms'):.3f} ms (phase 5 "
+            f"{med(m5, f'{name} p99 ms'):.3f})")
+
+    # (f) the strict seal after (a)-(d)'s warmup: the mix misses nothing
+    before = post_seal_misses()
+    seal_programs(strict=True)
+    try:
+        qps(mex, queries)
+        for q in queries:
+            mex.search(q, k=10)
+        torch.cuda.synchronize()
+    finally:
+        unseal_programs()
+    misses = post_seal_misses() - before
+    if misses:
+        raise RuntimeError(f"mesh (f): {misses} post-seal misses")
+    log(f"[mesh] (f) warmup then seal_programs(strict=True): the mix, "
+        f"pipelined and blocking, {misses} post-seal misses")
+    del mex
+    torch.cuda.empty_cache()
+
+    # (e) phase 8's generations, each split into four shards
+    gen2, gen3, _, _ = load_generations()
+    t0 = time.perf_counter()
+    meshc = MeshSourcesCollection(n_shards=len(shards))
+    for gen, s in enumerate((seg, gen2, gen3), start=1):
+        meshc.add_segment(s, gen)
+    meshc.commit()
+    built = time.perf_counter() - t0
+    empty = [s.n_docs for s in meshc.sources[0].executor().shards]
+    if meshc.sources[0].generation != 3 or any(empty):
+        raise RuntimeError(f"mesh (e): the erase-only generation's shards "
+                           f"hold {empty} docs")
+    want = coll.search_batch(queries, k=10)
+    got_c = meshc.search_batch(queries, k=10)
+    equal = same_results("mesh (e)", queries, got_c, want)
+    log(f"[mesh] (e) MeshSourcesCollection over phase 8's 3 generations "
+        f"(split and built in {built:.2f}s; generation 3's shards {empty} "
+        f"docs) equals phase 8's IndexSourcesCollection: ids on "
+        f"{len(queries)}/{len(queries)}, scores within 2 ulp ({equal} "
+        f"bit-equal)")
+    del meshc
+    torch.cuda.empty_cache()
+    log(f"[mesh] phase {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 # device functions the executor calls, timed one by one by --profile
 PROFILED = ("materialize_freq_tiles", "fused_flat_score_tiles",
             "fused_score_tiles", "materialize_posmask_tiles",
@@ -1598,18 +2086,23 @@ def main():
         phase_profile(seg, queries, phrase)
         log(nvidia_smi())
         return
-    rows = phase_kernels(seg, queries)
-    launches = phase_slice(seg, queries, base_topk, phrase)
+    shards = split_shards(seg)
+    rows = phase_kernels(seg, queries, shards)
+    launches, single, m5 = phase_slice(seg, queries, base_topk, phrase)
     phase_lazy(seg, queries, base_topk, phrase)
     phase_compound(seg, queries, phrase)
     coll = phase_collection(seg, queries, phrase)
     phase_rich(seg, queries, phrase, coll)
+    phase_percolator()
+    mesh_launches = phase_mesh(seg, shards, queries, phrase, base_topk, single,
+                               m5, coll)
     del coll
     loaded = reference_modules()
     log(f"[imports] modules of the JAX package loaded in this run: {loaded}")
     if loaded:
         raise RuntimeError(f"the port loaded the JAX package: {loaded}")
-    out = [dict(rows[k], route="cuda", launches=launches[k])
+    out = [dict(rows[k], route="cuda", launches=launches[k],
+                mesh_launches=mesh_launches[k])
            for k in ("decode", "flat", "tape", "posmask")]
     log(json.dumps({"kernels": out}))
     log(nvidia_smi())

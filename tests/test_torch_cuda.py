@@ -684,3 +684,65 @@ def test_threaded_warmup_then_strict_seal(dev, seg, hot_cfg):
     finally:
         unseal_programs()
     assert post_seal_misses() == before
+
+
+def test_percolator_cuda_equals_cpu(dev):
+    """The percolator on the card (the torch postfix evaluation over the
+    staged programs) equals its CPU run, in match_batch, match_stream and
+    chunked; the programs are staged once per registration epoch."""
+    from trinity_tpu_torch import Percolator
+
+    rng = np.random.default_rng(4)
+    texts = []
+    for i in range(1500):
+        a, b, c, d = (int(x) for x in rng.integers(0, 300, 4))
+        texts.append([f"w{a} w{b}", f"w{a} OR w{b} OR w{c}", f"w{a} NOT w{b}",
+                      f"[w{a}, w{b}, w{c}, w{d}]/2", f'"w{a} w{b}"',
+                      f"(w{a} w{b}) OR <w{c}>"][i % 6])
+    batches = [[[f"w{int(x)}" for x in rng.integers(0, 300, 40)]
+                for _ in range(256)] for _ in range(3)]
+    out = []
+    for d in (dev, "cpu"):
+        p = Percolator(device=d)
+        for t in texts:
+            p.register(t)
+        staged = p._epoch()[2]
+        out.append([p.match_batch(b) for b in batches]
+                   + list(p.match_stream(batches)))
+        assert p._epoch()[2] is staged
+    for g, w in zip(*out):
+        np.testing.assert_array_equal(g, w)
+    assert out[0][0].any() and not out[0][0].all()
+    from trinity_tpu_torch import percolator as perc
+
+    ops, uniq = p._pack()
+    inc, ph = p.build_incidence(batches[0], uniq)
+    np.testing.assert_array_equal(
+        perc.eval_programs(ops, inc, ph, device=dev, chunk=13), out[1][0])
+
+
+def test_mesh_cuda_equals_single_executor(dev, seg, hot_cfg):
+    """Four shards on one card equal the single executor on the unsharded
+    segment (ids and scores bit-equal), under a mask too; each live shard
+    launches the kernels."""
+    from trinity_tpu_torch.parallel import MeshExecutor
+
+    ex = Executor(seg, dev)
+    mex = MeshExecutor(seg, devices=dev, n_shards=4)
+    assert [d.type for d in mex.devices] == ["cuda"] * 4
+    for masked in (None, np.arange(0, seg.n_docs, 7)):
+        ex.set_masked_local_docs(masked)
+        mex.set_masked_local_docs(masked)
+        before = kernels.launches["flat"]
+        got = mex.search_batch(QUERIES, k=10)
+        assert kernels.launches["flat"] > before
+        want = ex.search_batch(QUERIES, k=10)
+        for q, g, w in zip(QUERIES, got, want):
+            assert [(r.doc_id, r.score) for r in g] == [
+                (r.doc_id, r.score) for r in w], q
+        pruned = mex.search_pruned_batch(QUERIES, k=10)
+        for q, g, w in zip(QUERIES, pruned, want):
+            assert [(r.doc_id, r.score) for r in g] == [
+                (r.doc_id, r.score) for r in w], q
+        for q in QUERIES[:4]:
+            np.testing.assert_array_equal(mex.match_ids(q), ex.match_ids(q))

@@ -239,6 +239,42 @@ def test_host_copies_equal_originals(port, ref, name):
     assert got.replace("trinity_tpu_torch", "trinity_tpu") == want
 
 
+PERC_HOST = ["_lower_rpn", "_phrase_match", "_Registered",
+             "_static_stack_depth", "Percolator._term_id",
+             "Percolator.register", "Percolator.n_queries",
+             "Percolator._pack", "Percolator.match",
+             "Percolator.build_incidence", "Percolator.match_ids_for_corpus"]
+
+
+@pytest.mark.parametrize("mod,name", [
+    *(("percolator", n) for n in PERC_HOST),
+    ("parallel.mesh", "_StatsProxy"), ("parallel.mesh", "split_segment"),
+])
+def test_percolator_and_mesh_host_copies_equal_originals(mod, name):
+    """The host halves the port's percolator and mesh copy, by source
+    (methods and properties of a class by dotted name), and the
+    percolator's opcodes by value."""
+    import importlib
+    import inspect
+
+    def source(pkg):
+        obj = importlib.import_module(f"{pkg}.{mod}")
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return inspect.getsource(getattr(obj, "fget", obj))
+
+    got = source("trinity_tpu_torch")
+    assert got.replace("trinity_tpu_torch", "trinity_tpu") == source(
+        "trinity_tpu")
+    if mod == "percolator":
+        port = importlib.import_module("trinity_tpu_torch.percolator")
+        ref = importlib.import_module("trinity_tpu.percolator")
+        ops = [n for n in vars(ref) if n.startswith("OP_")]
+        assert len(ops) == 12
+        assert {n: getattr(port, n) for n in ops} == {
+            n: getattr(ref, n) for n in ops}
+
+
 TAPES = ["t0", "t0 t1", "t0 OR <t1>", "<t1> OR t0", "t0 NOT t1", "t0 OR NOT t1",
          "[t0, t1, t2]/2", "(t0 t1) OR (t2 t3)", "(t0 OR t3) t5",
          "t0 ([t1,t5] OR t13)", "(t3 OR t9) NOT (t0 t1)", "t0 <t2>"]

@@ -7,8 +7,10 @@ never hides a missing device.
   search runs, phrases included (posmask, lazy and compound paths), and
   so do a two-generation collection (search, pruned search, match_ids
   through ``exec_query``), the merge, ``doc_set``, the metrics,
-  rich-match (``exec_rich``), ``intersect``, ``rewrite_query`` and a
-  threaded warmup with the seal; no ``trinity_tpu`` module is loaded. Only then is the finder removed and the
+  rich-match (``exec_rich``), ``intersect``, ``rewrite_query``, a
+  threaded warmup with the seal, a percolator ``match_batch`` and a
+  two-shard mesh search (``MeshExecutor``, ``MeshSourcesCollection``);
+  no ``trinity_tpu`` module is loaded. Only then is the finder removed and the
   oracle (``trinity_tpu.oracle``, with the JAX package's parser) imported,
   and the results must agree with it.
 - No source file of the port, and not chip_smoke.py, imports jax or
@@ -114,6 +116,20 @@ seal_programs(strict=True)
 ex.search_batch(qs)
 assert post_seal_misses() == 0
 unseal_programs()
+# the percolator and a two-shard mesh
+from trinity_tpu_torch import Percolator
+from trinity_tpu_torch.parallel import MeshExecutor, MeshSourcesCollection
+perc = Percolator(device="cpu")
+for q in ('a c', '"b c" OR d', '[a, b, d]/2'):
+    perc.register(q)
+perc_m = perc.match_batch([text.split() for text in docs.values()])
+mex = MeshExecutor(ex.seg, devices="cpu", n_shards=2)
+assert [s.n_docs for s in mex.shards] == [5, 0]
+mesh_hits = {q: [r.doc_id for r in mex.search(q, k=3)] for q in qs}
+assert mesh_hits == got, (mesh_hits, got)
+meshc = MeshSourcesCollection(devices="cpu", n_shards=2)
+meshc = meshc.add_segment(ex.seg, 1).add_segment(newer, 2).commit()
+assert [(r.doc_id, r.score) for r in meshc.search("a OR d", k=5)] == coll_hits
 loaded = [m for m in sys.modules
           if m == "trinity_tpu" or m.startswith("trinity_tpu.")]
 assert not loaded, loaded
@@ -130,6 +146,10 @@ for q in qs:
     want = [d for d, _ in oracle_search(oc, parse_query(q).root, k=3)]
     assert got[q] == want, (q, got[q], want)
 assert lazy == [1]
+from trinity_tpu.oracle import oracle_match_ids
+for qi, q in enumerate(('a c', '"b c" OR d', '[a, b, d]/2')):
+    ids = [d for d, hit in zip(docs, perc_m[:, qi]) if hit]
+    assert ids == oracle_match_ids(oc, parse_query(q).root), (q, ids)
 print("OK")
 """
 
@@ -169,7 +189,8 @@ def test_port_sources_import_no_jax_and_no_reference_ops():
     assert len(files) >= 25
     rel = {os.path.relpath(p, pkg) for p in files}
     assert {"exec/pruned.py", "exec/residency.py", "index/source.py",
-            "index/merge.py", "utils/metrics.py", "utils/timings.py"} <= rel
+            "index/merge.py", "utils/metrics.py", "utils/timings.py",
+            "percolator.py", "parallel/mesh.py"} <= rel
     for path in files:
         for n in _imported_names(path):
             assert not _refused(n), (path, n)

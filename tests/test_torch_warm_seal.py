@@ -11,6 +11,7 @@ import pytest
 from torch_twins import build_pair
 from trinity_tpu_torch import Executor, IndexSourcesCollection
 from trinity_tpu_torch.utils.seal import (
+    forget_variants,
     post_seal_misses,
     seal_programs,
     unseal_programs,
@@ -22,6 +23,14 @@ def _fill(sess):
     for d in range(400):
         toks = [f"t{int(i)}" for i in rng.integers(0, 60, rng.integers(4, 24))]
         sess.bulk_index([d], [toks])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_variants():
+    """Start from no recorded variant, as a serving process does: a shape
+    that another test file's searches recorded earlier in this process
+    would not be novel here."""
+    forget_variants()
 
 
 @pytest.fixture(scope="module")

@@ -76,3 +76,31 @@ def reconfigured(**kw):
     finally:
         for mod in (port_config, ref_config):
             mod.configure(**old)
+
+
+def port_cases(name, edits=()):
+    """The cases of tests/<name>.py run on the port: the file's source with
+    every trinity_tpu module renamed to the port's (trinity_tpu_torch) and
+    each (old, new) of `edits` applied (each must occur in the source),
+    executed as a module of its own. Returns its test functions and
+    fixtures, for a twin module's globals."""
+    import os
+    import re
+    import types
+
+    import pytest
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        f"{name}.py")
+    with open(path) as f:
+        src = f.read().replace("trinity_tpu.", "trinity_tpu_torch.")
+    for old, new in edits:
+        assert old in src, (name, old)
+        src = src.replace(old, new)
+    assert not re.search(r"\btrinity_tpu\b(?!_torch)", src), name
+    mod = types.ModuleType(f"{name}_on_the_port")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    fixture_type = type(pytest.fixture(lambda: None))
+    return {k: v for k, v in vars(mod).items()
+            if k.startswith("test_") or isinstance(v, fixture_type)}

@@ -11,8 +11,11 @@ collection-wide statistics, one merged top-k) and segment merge
 byte budget (``exec/residency.py``); the default rich-match mode
 (``exec_rich``: every match with its terms' hits, in docid order),
 co-occurrence mining (``query/intersect.py``), query rewriting
-(``rewrite_query``) and threaded warmup with a seal on the variants it
-ran (``utils/seal.py``). It stands alone: the
+(``rewrite_query``), threaded warmup with a seal on the variants it
+ran (``utils/seal.py``), the percolator (``Percolator``: documents
+matched against thousands of registered queries) and sharded serving
+(``parallel``: ``MeshExecutor`` and ``MeshSourcesCollection`` over a list
+of devices). It stands alone: the
 host code — config, indexing and the segment format, the query language,
 plan compilation, weights — is the port's own copy of the JAX package's
 JAX-free modules, in the same layout (``config.py``, ``index/``,
@@ -54,6 +57,7 @@ from trinity_tpu_torch.index.builder import SegmentIndexSession
 from trinity_tpu_torch.index.format import SegmentData
 from trinity_tpu_torch.index.merge import MergeCandidatesCollection, Retention
 from trinity_tpu_torch.index.source import IndexSource, IndexSourcesCollection
+from trinity_tpu_torch.percolator import Percolator
 from trinity_tpu_torch.query.parser import ParserFlags, Query, parse_query
 from trinity_tpu_torch.query.rewrite import Alternative, rewrite_query
 from trinity_tpu_torch.utils.metrics import get_metrics
@@ -89,6 +93,7 @@ __all__ = [
     "IndexSourcesCollection",
     "MergeCandidatesCollection",
     "Retention",
+    "Percolator",
     "Query",
     "parse_query",
     "ParserFlags",

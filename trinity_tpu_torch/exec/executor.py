@@ -84,6 +84,7 @@ from trinity_tpu_torch.exec.planning import (
     _pick_c2,
     _plan_for_text,
 )
+from trinity_tpu_torch.exec import richmatch
 from trinity_tpu_torch.exec.pruned import search_pruned_batch
 from trinity_tpu_torch.exec.phrases import (
     collect_phrases,
@@ -122,7 +123,7 @@ from trinity_tpu_torch.ops.select import (
     compact_mask,
     gather_cols,
 )
-from trinity_tpu_torch.plan.compile import compile_plan
+from trinity_tpu_torch.plan.compile import CompiledPlan, compile_plan
 from trinity_tpu_torch.query.parser import Query
 from trinity_tpu_torch.utils import seal
 from trinity_tpu_torch.utils.metrics import get_metrics
@@ -137,8 +138,8 @@ _SERIALS = itertools.count()  # names an executor's caches for the seal
 # kinds whose launch depends on the tape itself (the rest take it as data)
 TAPE_KINDS = ("fused", "dense", "phrase")
 
-__all__ = ["ExecFlags", "Executor", "SearchResult", "state_from_numpy",
-           "warmup_driver"]
+__all__ = ["ExecFlags", "Executor", "SearchResult", "plan_queries",
+           "state_from_numpy", "warmup_driver"]
 
 
 def warmup_driver(target, queries, k, scorer, batch, threads) -> dict:
@@ -168,12 +169,29 @@ def warmup_driver(target, queries, k, scorer, batch, threads) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def plan_queries(queries: Sequence) -> list:
+    """Each query's CompiledPlan (None when it parses to nothing): a text
+    through the parse cache, a Query or AST root compiled, a CompiledPlan
+    as it is (a caller that plans once for many executors)."""
+    plans = []
+    for q in queries:
+        if isinstance(q, CompiledPlan):
+            plan = q
+        elif isinstance(q, str):
+            _, plan = _plan_for_text(q)
+        else:
+            root = q.root if isinstance(q, Query) else q
+            plan = compile_plan(root) if root is not None else None
+        plans.append(plan)
+    return plans
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "Executor(device='cuda'): torch.cuda.is_available() is False"
+                f"device={device!r}: torch.cuda.is_available() is False"
             )
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
@@ -567,17 +585,14 @@ class Executor:
         local = torch.nonzero(scores.reshape(-1) > NEG_INF).reshape(-1)
         return self.seg.doc_map[local.cpu().numpy()]
 
+    def exec_rich(self, query, on_match, **kwargs) -> int:
+        """Default (rich-match) mode on this executor: exec/richmatch.py's
+        exec_rich, with its keyword arguments."""
+        return richmatch.exec_rich(self, query, on_match, **kwargs)
+
     def _parse(self, queries: Sequence) -> list:
         """Each query's CompiledPlan (None when it parses to nothing)."""
-        plans = []
-        for q in queries:
-            if isinstance(q, str):
-                _, plan = _plan_for_text(q)
-            else:
-                root = q.root if isinstance(q, Query) else q
-                plan = compile_plan(root) if root is not None else None
-            plans.append(plan)
-        return plans
+        return plan_queries(queries)
 
     def _weighting(self, stats, df_of):
         """(docs_cnt, term -> df) for the weights: the collection's when
@@ -1106,8 +1121,14 @@ class Executor:
                      scorer: str = "bm25", stats=None, df_of=None):
         """Plan and launch a batch; returns a handle for finish_batch.
         Boolean and posmask groups return without waiting for the device."""
-        t0 = time.perf_counter()
         get_metrics().count("search.queries", len(queries))
+        return self.launch_groups(queries, k, scorer, stats, df_of)
+
+    def launch_groups(self, queries: Sequence, k: int = 10,
+                      scorer: str = "bm25", stats=None, df_of=None):
+        """launch_batch without counting the queries (a mesh counts its
+        batch once, not once per shard)."""
+        t0 = time.perf_counter()
         with trace("exec.prepare"):
             groups = self.plan_batch(queries, scorer, k, stats, df_of)
         outs = [self.run_group(g, k, scorer) for g in groups]
@@ -1120,12 +1141,42 @@ class Executor:
         results: List[List[SearchResult]] = [[] for _ in range(n)]
         if not groups:
             return results
+        doc_map = self.seg.doc_map
+        for qi, gv, gi in self._finished_rows(handle):
+            res = []
+            for v, i in zip(gv, gi):
+                if v == NEG_INF:
+                    break
+                res.append(SearchResult(int(doc_map[i]), float(v)))
+            results[qi] = res
+        get_metrics().observe_us("search.batch_latency",
+                                 (time.perf_counter() - t0) * 1e6)
+        return results
+
+    def finish_rows(self, handle) -> List[tuple]:
+        """finish_batch's results before the doc map, for a mesh to merge
+        its shards' rows: per query (scores f32, local docids int64), best
+        first, -inf entries dropped."""
+        empty = (np.zeros(0, np.float32), np.zeros(0, np.int64))
+        results: List[tuple] = [empty] * handle[2]
+        for qi, gv, gi in self._finished_rows(handle):
+            stop = np.flatnonzero(gv == NEG_INF)  # the row ends at its first
+            end = stop[0] if len(stop) else len(gv)
+            results[qi] = (gv[:end], gi[:end].astype(np.int64))
+        return results
+
+    def _finished_rows(self, handle):
+        """(query index, score row, local docid row) of every member of a
+        launch_batch handle's groups, after the wait for the device and
+        the lazy-phrase reruns."""
+        groups, outs, n, k, scorer, _ = handle
+        if not groups:
+            return
         with trace("exec.device"):
             vals = torch.cat([o[0] for o in outs]).cpu().numpy()
             ids = torch.cat([o[1] for o in outs]).cpu().numpy()
             flags = [o[2] for o in outs if o[2] is not None]
             resolved = torch.cat(flags).cpu().numpy() if flags else None
-        doc_map = self.seg.doc_map
         row = frow = 0
         for g, o in zip(groups, outs):
             gv, gi = vals[row : row + g.B], ids[row : row + g.B]
@@ -1136,12 +1187,4 @@ class Executor:
                 )
                 frow += g.B
             for bi, (qi, _) in enumerate(g.members):
-                res = []
-                for v, i in zip(gv[bi], gi[bi]):
-                    if v == NEG_INF:
-                        break
-                    res.append(SearchResult(int(doc_map[i]), float(v)))
-                results[qi] = res
-        get_metrics().observe_us("search.batch_latency",
-                                 (time.perf_counter() - t0) * 1e6)
-        return results
+                yield qi, gv[bi], gi[bi]

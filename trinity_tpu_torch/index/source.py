@@ -17,7 +17,9 @@ The port's sources build the port's Executor on the collection's device
 ``search_batch`` launches every source's batch before it finishes any;
 ``launch_batch`` / ``finish_batch`` split it, so a caller can launch the
 next batch before finishing this one. ``exec_rich`` runs rich-match per
-source; ``warmup`` sends a workload through ``warmup_driver``.
+source; ``warmup`` sends a workload through ``warmup_driver``. A source's
+executor comes from the collection's ``new_executor``: an Executor here, a
+MeshExecutor in ``parallel/mesh.py``'s MeshSourcesCollection.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -38,21 +40,37 @@ def now_generation() -> int:
     return time.time_ns() // 1000
 
 
+def merge_results(per_part, n: int, k: int):
+    """Per-query merge of per-source (or per-shard) results: (score desc,
+    app docid asc), top k."""
+    out = []
+    for qi in range(n):
+        merged = [r for res in per_part for r in res[qi]]
+        merged.sort(key=lambda r: (-r.score, r.doc_id))
+        out.append(merged[:k])
+    return out
+
+
 @dataclass
 class IndexSource:
     """One searchable segment + generation (index_source.h:18-155), with
-    the device its executor runs on."""
+    the device its executor runs on, or `make` (segment -> executor) to
+    build that executor otherwise."""
 
     seg: SegmentData
     generation: int
     device: str = "cuda"
+    make: Optional[Callable] = None
     _executor: object = None
 
     def executor(self):
         if self._executor is None:
-            from trinity_tpu_torch.exec.executor import Executor
+            if self.make is not None:
+                self._executor = self.make(self.seg)
+            else:
+                from trinity_tpu_torch.exec.executor import Executor
 
-            self._executor = Executor(self.seg, device=self.device)
+                self._executor = Executor(self.seg, device=self.device)
         return self._executor
 
     @property
@@ -76,9 +94,15 @@ class IndexSourcesCollection:
         self.sources.append(source)
         self._committed = False
 
+    def new_executor(self, seg: SegmentData):
+        """The executor a source added by add_segment searches with."""
+        from trinity_tpu_torch.exec.executor import Executor
+
+        return Executor(seg, device=self.device)
+
     def add_segment(self, seg: SegmentData, generation: Optional[int] = None):
         self.insert(IndexSource(seg, generation or now_generation(),
-                                self.device))
+                                self.device, self.new_executor))
         return self
 
     def commit(self) -> "IndexSourcesCollection":
@@ -128,16 +152,6 @@ class IndexSourcesCollection:
         return df
 
     # ------------------------------------------------------------- search
-    def _merge(self, per_source, n: int, k: int):
-        """Per-query merge of per-source results: (score desc, app docid
-        asc), top k."""
-        out = []
-        for qi in range(n):
-            merged = [r for res in per_source for r in res[qi]]
-            merged.sort(key=lambda r: (-r.score, r.doc_id))
-            out.append(merged[:k])
-        return out
-
     def search(self, query, k: int = 10, scorer: str = "bm25"):
         """exec_query over every source + deterministic top-k merge
         (exec.h:63-81; merging contract exec.h:55-58)."""
@@ -170,7 +184,7 @@ class IndexSourcesCollection:
         """Finish each source's batch of a launch_batch handle and merge
         the per-query results."""
         handles, n, k = handle
-        return self._merge([ex.finish_batch(h) for ex, h in handles], n, k)
+        return merge_results([ex.finish_batch(h) for ex, h in handles], n, k)
 
     def search_pruned(self, query, k: int = 10, scorer: str = "bm25",
                       chunk_windows: int = 16):
@@ -191,7 +205,7 @@ class IndexSourcesCollection:
             for src in self.sources
             if not src.index_empty()
         ]
-        return self._merge(per_source, len(queries), k)
+        return merge_results(per_source, len(queries), k)
 
     def match_ids(self, query) -> np.ndarray:
         """Matching app ids over every source under its masked registry,
@@ -207,14 +221,12 @@ class IndexSourcesCollection:
         first). Callback order is ascending per source; cross-source
         merging is the caller's concern, exactly the reference's
         multi-source contract (exec.h:55-62). Returns total matches."""
-        from trinity_tpu_torch.exec.richmatch import exec_rich as _exec_rich
-
         if not self._committed:
             self.commit()
         total = 0
         for src in self.sources:
             if not src.index_empty():
-                total += _exec_rich(src.executor(), query, on_match, **kwargs)
+                total += src.executor().exec_rich(query, on_match, **kwargs)
         return total
 
     def warmup(self, queries, k: int = 10, scorer: str = "bm25",

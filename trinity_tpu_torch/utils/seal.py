@@ -48,6 +48,12 @@ def post_seal_misses() -> int:
     return 0 if snap is None else int(snap["value"])
 
 
+def forget_variants() -> None:
+    """Forget every recorded variant, as a new process starts with none."""
+    with _lock:
+        _seen.clear()
+
+
 def variants_recorded() -> int:
     """Distinct variants this process has recorded."""
     with _lock:
