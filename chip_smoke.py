@@ -2036,7 +2036,7 @@ def phase_profile(seg, queries, phrase):
             t1 = time.perf_counter()
             outs = [ex.run_group(g, 10, "bm25") for g in groups]
             t2 = time.perf_counter()
-            ex.finish_batch((groups, outs, len(qs), 10, "bm25", t2))
+            ex.finish_batch((groups, outs, len(qs), 10, "bm25", t2, None))
             split.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
         plan, launch, finish = np.median(np.array(split) * 1e3, axis=0)
         log(f"[profile] {name} ({len(qs)} queries), one blocking batch: "

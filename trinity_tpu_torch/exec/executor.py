@@ -46,11 +46,17 @@ ids and scores back. Results rank by score desc, local docid asc.
 the group's score tiles (-inf outside it): K2 / K3 for the boolean kinds,
 K1 and the tape in torch for the dense kind, the posmask path for pure
 phrases (the compound path when posmask is off), the compound path for
-phrases inside trees. Counters (``utils/metrics.py``) and spans
-(``utils/timings.py``) carry the reference's names: ``search.queries``,
-``search.batch_latency``, ``phrase.host_verify``,
-``phrase.dense_fallback``; ``exec.search``, ``exec.prepare``,
-``exec.device``.
+phrases inside trees. Counters (``utils/metrics.py``) carry the
+reference's names: ``search.queries``, ``search.batch_latency``,
+``phrase.host_verify``, ``phrase.dense_fallback``. Spans
+(``utils/timings.py``): ``exec.search`` (a search() call), ``exec.launch``
+(``launch_groups``, which gives the batch its id and puts it in the
+handle) around ``exec.prepare`` (``plan_batch``) and one
+``exec.group.<kind>`` per group, ``exec.finish`` (``finish_batch`` /
+``finish_rows``) around ``exec.device`` (the wait and the copies back);
+``exec.phrase`` around the phrase work on the host (the posmask member
+loop, position verification, the host verifier, the lazy reruns). The
+counter ``plan.df_lookups`` adds each plan's ``df_of`` calls.
 Phrase groups are not padded to a batch bucket: eager torch compiles
 nothing per shape.
 
@@ -62,6 +68,7 @@ under a lock, whichever threads reach them first.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -127,7 +134,7 @@ from trinity_tpu_torch.plan.compile import CompiledPlan, compile_plan
 from trinity_tpu_torch.query.parser import Query
 from trinity_tpu_torch.utils import seal
 from trinity_tpu_torch.utils.metrics import get_metrics
-from trinity_tpu_torch.utils.timings import trace
+from trinity_tpu_torch.utils.timings import get_tracer, trace
 
 # tapes reading more slots run the dense path (decode + torch tape eval)
 FUSED_MAX_SLOTS = 8
@@ -649,7 +656,14 @@ class Executor:
         group, and build each group's cell tables and weights, from
         `stats` / `df_of` when given (the reference's ``_prepare``)."""
         model = SIMILARITIES[scorer]
-        docs_cnt, df_of = self._weighting(stats, df_of)
+        docs_cnt, weigh_df = self._weighting(stats, df_of)
+        lookups = 0
+
+        def df_of(term):
+            nonlocal lookups
+            lookups += 1
+            return weigh_df(term)
+
         keyed: dict = {}
         phrase_keyed: dict = {}
         for qi, plan in enumerate(self._parse(queries)):
@@ -703,11 +717,16 @@ class Executor:
             if g is None:
                 g = self._prep_phrase_lazy(key, members, k, ctx)
             groups.append(g)
+        get_tracer().add("plan.df_lookups", lookups)
         return groups
 
     def run_group(self, g: Group, k: int, scorer: str):
         """Launch one group; returns device (values (B, k) f32, local docids
         (B, k) int64, resolved (B,) bool for lazyph groups, else None)."""
+        with trace(f"exec.group.{g.kind}", B=g.B, T=g.T):
+            return self._run_group(g, k, scorer)
+
+    def _run_group(self, g: Group, k: int, scorer: str):
         seal.record(g.variant)
         a = {n: self._put(v) for n, v in g.arrays.items()}
         if g.kind in ("flat", "fused"):
@@ -851,15 +870,17 @@ class Executor:
         dead = None if self._deleted is None else self._deleted.reshape(
             W, TILE, TILE)
         scores = torch.empty((B, W, TILE, TILE), device=self.device)
-        for b in range(B):
-            freq = phrase_freq_from_masks(
-                [member(mi) for mi in g.ctx["memidx"][b]], K, PW
-            )  # (W, 128, 128)
-            live = freq > 0
-            if dead is not None:
-                live &= ~dead
-            sc = score_tile(scorer, freq.to(torch.float32), a["weights"][b])
-            scores[b] = torch.where(live, sc, NEG_INF)
+        with trace("exec.phrase"):
+            for b in range(B):
+                freq = phrase_freq_from_masks(
+                    [member(mi) for mi in g.ctx["memidx"][b]], K, PW
+                )  # (W, 128, 128)
+                live = freq > 0
+                if dead is not None:
+                    live &= ~dead
+                sc = score_tile(scorer, freq.to(torch.float32),
+                                a["weights"][b])
+                scores[b] = torch.where(live, sc, NEG_INF)
         return scores
 
     def _prep_phrase_lazy(self, key, members, k, ctx) -> Group:
@@ -917,8 +938,9 @@ class Executor:
         )
         pf = torch.stack([gather_cols(f, ki) for f in mf], -1).to(torch.int32)
         po = torch.stack([gather_cols(o, ki) for o in mo], -1)
-        pfreq = verify_phrases_device(self.hit_pw, self.hit_off, valid, pf,
-                                      po, fcaps)
+        with trace("exec.phrase"):
+            pfreq = verify_phrases_device(self.hit_pw, self.hit_off, valid,
+                                          pf, po, fcaps)
         live = (pfreq > 0) & valid
         if self._deleted is not None:
             live &= ~self._deleted[ki.long()]
@@ -954,44 +976,46 @@ class Executor:
         weights = g.arrays["weights"]
         out_v = np.full((B, k), NEG_INF, np.float32)
         out_i = np.zeros((B, k), np.int64)
-        for bi, (_, plan) in enumerate(g.members):
-            acc_v = np.zeros(0, np.float32)
-            acc_i = np.zeros(0, np.int64)
-            n_valid = int((bounds[bi] > 0).sum())
-            resolved = n_valid == 0
-            for c0 in range(0, n_valid, HOST_VERIFY_CHUNK):
-                hi = min(c0 + HOST_VERIFY_CHUNK, n_valid)
-                pfreq = verify_phrase_candidates(
-                    seg.positions, np.ones(hi - c0, bool), pf[bi, c0:hi],
-                    po[bi, c0:hi],
-                )
-                gid = gids[bi, c0:hi]
-                keep = pfreq > 0
-                if self._deleted_np is not None:
-                    keep &= ~self._deleted_np[gid]
-                sc = model.score_tile(
-                    pfreq[keep].astype(np.float32), np.float32(weights[bi])
-                ).astype(np.float32)
-                acc_v = np.concatenate([acc_v, sc])
-                acc_i = np.concatenate([acc_i, gid[keep]])
-                order = np.lexsort((acc_i, -acc_v))[: 2 * k]
-                acc_v, acc_i = acc_v[order], acc_i[order]
-                if hi == n_valid:
-                    # every pulled candidate verified: exact unless cut
-                    resolved = not (bool(overflow[bi]) or n_valid >= C2)
-                elif len(acc_v) >= k:
-                    nxt = float(model.score_tile(
-                        np.float32(bounds[bi, hi]), np.float32(weights[bi])
-                    ))
-                    if nxt < acc_v[k - 1]:
-                        resolved = True
-                        break
-            if not resolved:
-                acc_v, acc_i = self._dense_phrase_fallback(plan, g.ctx, k,
-                                                           scorer)
-            nkeep = min(len(acc_v), k)
-            out_v[bi, :nkeep] = acc_v[:nkeep]
-            out_i[bi, :nkeep] = acc_i[:nkeep]
+        # the host verifier, and a fallback's own verification in it
+        with trace("exec.phrase"):
+            for bi, (_, plan) in enumerate(g.members):
+                acc_v = np.zeros(0, np.float32)
+                acc_i = np.zeros(0, np.int64)
+                n_valid = int((bounds[bi] > 0).sum())
+                resolved = n_valid == 0
+                for c0 in range(0, n_valid, HOST_VERIFY_CHUNK):
+                    hi = min(c0 + HOST_VERIFY_CHUNK, n_valid)
+                    pfreq = verify_phrase_candidates(
+                        seg.positions, np.ones(hi - c0, bool), pf[bi, c0:hi],
+                        po[bi, c0:hi],
+                    )
+                    gid = gids[bi, c0:hi]
+                    keep = pfreq > 0
+                    if self._deleted_np is not None:
+                        keep &= ~self._deleted_np[gid]
+                    sc = model.score_tile(
+                        pfreq[keep].astype(np.float32), np.float32(weights[bi])
+                    ).astype(np.float32)
+                    acc_v = np.concatenate([acc_v, sc])
+                    acc_i = np.concatenate([acc_i, gid[keep]])
+                    order = np.lexsort((acc_i, -acc_v))[: 2 * k]
+                    acc_v, acc_i = acc_v[order], acc_i[order]
+                    if hi == n_valid:
+                        # every pulled candidate verified: exact unless cut
+                        resolved = not (bool(overflow[bi]) or n_valid >= C2)
+                    elif len(acc_v) >= k:
+                        nxt = float(model.score_tile(
+                            np.float32(bounds[bi, hi]), np.float32(weights[bi])
+                        ))
+                        if nxt < acc_v[k - 1]:
+                            resolved = True
+                            break
+                if not resolved:
+                    acc_v, acc_i = self._dense_phrase_fallback(plan, g.ctx, k,
+                                                               scorer)
+                nkeep = min(len(acc_v), k)
+                out_v[bi, :nkeep] = acc_v[:nkeep]
+                out_i[bi, :nkeep] = acc_i[:nkeep]
         return self._put(out_v), self._put(out_i)
 
     def _finish_phrase_lazy(self, g: Group, gv, gi, resolved, k, scorer):
@@ -1000,7 +1024,9 @@ class Executor:
         for bi, (_, plan) in enumerate(g.members):
             if not resolved[bi]:
                 get_metrics().count("phrase.dense_fallback")
-                fv, fi = self._dense_phrase_fallback(plan, g.ctx, k, scorer)
+                with trace("exec.phrase"):
+                    fv, fi = self._dense_phrase_fallback(plan, g.ctx, k,
+                                                         scorer)
                 nkeep = min(len(fv), k)
                 gv[bi] = NEG_INF
                 gv[bi, :nkeep] = fv[:nkeep]
@@ -1009,11 +1035,13 @@ class Executor:
 
     def _dense_phrase_fallback(self, plan, ctx, k, scorer):
         """One pure-phrase query as a compound group of one (every
-        candidate verified): host (values, local ids)."""
+        candidate verified): host (values, local ids). Its callers hold
+        it inside an ``exec.phrase`` span, so its verification opens
+        none."""
         g = self._prep_phrase_compound(plan.tape, [(0, plan)], ctx)
         seal.record(g.variant)
         a = {n: self._put(v) for n, v in g.arrays.items()}
-        scores = self._compound_scores(g, a, scorer)
+        scores = self._compound_scores(g, a, scorer, span=False)
         gv, gi = topk_lowest_index(scores.reshape(1, -1), k)
         return gv[0].cpu().numpy(), gi[0].cpu().numpy()
 
@@ -1042,11 +1070,13 @@ class Executor:
                      {"cs": cs, "cn": cn, "weights": weights},
                      dict(ctx, C=C, phrase_slots=phrase_slots, fcaps=fcaps))
 
-    def _compound_scores(self, g: Group, a: dict, scorer: str):
+    def _compound_scores(self, g: Group, a: dict, scorer: str,
+                         span: bool = True):
         """Pass A (the first C member-conjunction candidates per window, in
-        docid order), verification (device, or the numpy verifier), pass C
-        (the tape with the verified phrase-frequency tiles): (B, W, 16384)
-        scores, -inf outside the match."""
+        docid order), verification (device, or the numpy verifier; in an
+        ``exec.phrase`` span unless `span` is False), pass C (the tape with
+        the verified phrase-frequency tiles): (B, W, 16384) scores, -inf
+        outside the match."""
         B, T = g.B, g.T
         freq, offv = self._decode_batch(g, a, with_offsets=True)
         C, fcaps = g.ctx["C"], g.ctx["fcaps"]
@@ -1064,15 +1094,17 @@ class Executor:
                              -1).to(torch.int32)
             po = torch.stack([gather_cols(offv[:, :, s], ki) for s in slots],
                              -1)
-            if fcaps is not None:
-                pfreq = verify_phrases_device(self.hit_pw, self.hit_off,
-                                              valid, pf, po, fcaps[p])
-            else:
-                pfreq = self._put(verify_phrase_candidates(
-                    self.seg.positions, valid.reshape(-1).cpu().numpy(),
-                    pf.reshape(-1, len(slots)).cpu().numpy(),
-                    po.reshape(-1, len(slots)).cpu().numpy(),
-                ).reshape(ki.shape))
+            with (trace("exec.phrase") if span
+                  else contextlib.nullcontext()):
+                if fcaps is not None:
+                    pfreq = verify_phrases_device(self.hit_pw, self.hit_off,
+                                                  valid, pf, po, fcaps[p])
+                else:
+                    pfreq = self._put(verify_phrase_candidates(
+                        self.seg.positions, valid.reshape(-1).cpu().numpy(),
+                        pf.reshape(-1, len(slots)).cpu().numpy(),
+                        po.reshape(-1, len(slots)).cpu().numpy(),
+                    ).reshape(ki.shape))
             # invalid slots verify to 0: adding them changes nothing
             tile = torch.zeros(freq[:, :, 0].shape, device=self.device)
             ptiles.append(tile.scatter_add_(2, ki.long(),
@@ -1129,26 +1161,30 @@ class Executor:
         """launch_batch without counting the queries (a mesh counts its
         batch once, not once per shard)."""
         t0 = time.perf_counter()
-        with trace("exec.prepare"):
-            groups = self.plan_batch(queries, scorer, k, stats, df_of)
-        outs = [self.run_group(g, k, scorer) for g in groups]
-        return groups, outs, len(queries), k, scorer, t0
+        tracer = get_tracer()
+        batch = tracer.current_batch() or tracer.new_batch()
+        with trace("exec.launch", batch=batch, source=self._serial):
+            with trace("exec.prepare"):
+                groups = self.plan_batch(queries, scorer, k, stats, df_of)
+            outs = [self.run_group(g, k, scorer) for g in groups]
+        return groups, outs, len(queries), k, scorer, t0, batch
 
     def finish_batch(self, handle) -> List[List[SearchResult]]:
         """Wait for a launch_batch handle and build the results (rerunning
         the rare unresolved lazy-phrase queries)."""
-        groups, outs, n, k, scorer, t0 = handle
+        groups, outs, n, k, scorer, t0, batch = handle
         results: List[List[SearchResult]] = [[] for _ in range(n)]
         if not groups:
             return results
         doc_map = self.seg.doc_map
-        for qi, gv, gi in self._finished_rows(handle):
-            res = []
-            for v, i in zip(gv, gi):
-                if v == NEG_INF:
-                    break
-                res.append(SearchResult(int(doc_map[i]), float(v)))
-            results[qi] = res
+        with trace("exec.finish", batch=batch):
+            for qi, gv, gi in self._finished_rows(handle):
+                res = []
+                for v, i in zip(gv, gi):
+                    if v == NEG_INF:
+                        break
+                    res.append(SearchResult(int(doc_map[i]), float(v)))
+                results[qi] = res
         get_metrics().observe_us("search.batch_latency",
                                  (time.perf_counter() - t0) * 1e6)
         return results
@@ -1159,17 +1195,19 @@ class Executor:
         first, -inf entries dropped."""
         empty = (np.zeros(0, np.float32), np.zeros(0, np.int64))
         results: List[tuple] = [empty] * handle[2]
-        for qi, gv, gi in self._finished_rows(handle):
-            stop = np.flatnonzero(gv == NEG_INF)  # the row ends at its first
-            end = stop[0] if len(stop) else len(gv)
-            results[qi] = (gv[:end], gi[:end].astype(np.int64))
+        with trace("exec.finish", batch=handle[6]):
+            for qi, gv, gi in self._finished_rows(handle):
+                # the row ends at its first -inf
+                stop = np.flatnonzero(gv == NEG_INF)
+                end = stop[0] if len(stop) else len(gv)
+                results[qi] = (gv[:end], gi[:end].astype(np.int64))
         return results
 
     def _finished_rows(self, handle):
         """(query index, score row, local docid row) of every member of a
         launch_batch handle's groups, after the wait for the device and
         the lazy-phrase reruns."""
-        groups, outs, n, k, scorer, _ = handle
+        groups, outs, n, k, scorer = handle[:5]
         if not groups:
             return
         with trace("exec.device"):

@@ -16,7 +16,10 @@ The port's sources build the port's Executor on the collection's device
 (``IndexSourcesCollection(device="cuda")``, the default, or ``"cpu"``);
 ``search_batch`` launches every source's batch before it finishes any;
 ``launch_batch`` / ``finish_batch`` split it, so a caller can launch the
-next batch before finishing this one. ``exec_rich`` runs rich-match per
+next batch before finishing this one; their spans (``utils/timings.py``),
+``collection.launch`` and ``collection.finish``, hold each source's
+``exec.launch`` / ``exec.finish`` under the collection's batch id, and
+``collection.merge`` the merge. ``exec_rich`` runs rich-match per
 source; ``warmup`` sends a workload through ``warmup_driver``. A source's
 executor comes from the collection's ``new_executor``: an Executor here, a
 MeshExecutor in ``parallel/mesh.py``'s MeshSourcesCollection.
@@ -32,6 +35,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from trinity_tpu_torch.index.format import FieldStatistics, SegmentData
+from trinity_tpu_torch.utils.timings import get_tracer, trace
 
 
 def now_generation() -> int:
@@ -169,22 +173,27 @@ class IndexSourcesCollection:
         (so a caller can launch the next batch before finishing this)."""
         if not self._committed:
             self.commit()
-        stats = self.aggregated_stats()
-        handles = []
-        for src in self.sources:
-            if src.index_empty():
-                continue
-            ex = src.executor()
-            handles.append((ex, ex.launch_batch(
-                queries, k=k, scorer=scorer, stats=stats,
-                df_of=self.doc_freq)))
-        return handles, len(queries), k
+        batch = get_tracer().new_batch()
+        with trace("collection.launch", batch=batch):
+            stats = self.aggregated_stats()
+            handles = []
+            for src in self.sources:
+                if src.index_empty():
+                    continue
+                ex = src.executor()
+                handles.append((ex, ex.launch_batch(
+                    queries, k=k, scorer=scorer, stats=stats,
+                    df_of=self.doc_freq)))
+        return handles, len(queries), k, batch
 
     def finish_batch(self, handle):
         """Finish each source's batch of a launch_batch handle and merge
         the per-query results."""
-        handles, n, k = handle
-        return merge_results([ex.finish_batch(h) for ex, h in handles], n, k)
+        handles, n, k, batch = handle
+        with trace("collection.finish", batch=batch):
+            per_source = [ex.finish_batch(h) for ex, h in handles]
+            with trace("collection.merge", sources=len(per_source)):
+                return merge_results(per_source, n, k)
 
     def search_pruned(self, query, k: int = 10, scorer: str = "bm25",
                       chunk_windows: int = 16):
