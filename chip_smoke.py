@@ -43,7 +43,8 @@ non-zero):
    4, 8), on one query alone (search()'s B = 1) and on phase 11's mesh
    shard 0's largest flat group (W = 16), K3 on the OR-of-AND group, K4 on
    the first 8-term chunk of the posmask hot cache and on the bigram and
-   trigram groups' uncached cells, all over every window;
+   trigram groups' uncached cells, all over every window, and K5 on the
+   bigram and trigram groups (their K4 words and the posmask hot cache);
 5. the main path: Executor(seg, "cuda"), warmup, pipelined launch_batch /
    finish_batch QPS over the 120 queries and over each part (median of 3
    loops of 5 reps), blocking search() p50/p99 for each part (median of 3
@@ -536,7 +537,36 @@ def kernel_cases(ex, queries):
                                             a[6]),
             lambda a=args: f"{position_elements(*a[:2], *a[4:6])} position "
                            f"elements"))
+    if hasattr(pm, "phrase_score_tiles"):  # an older tree (--turns) has no K5
+        for T, name in ((2, "bigram group"), (3, "trigram group")):
+            cases.append(phrase_case(ex, next(
+                g for g in groups if g.kind == "posph" and g.T == T), name))
     return cases
+
+
+def phrase_case(ex, g, name):
+    """The phase-4 case of K5 on posmask group `g`: its uncached members'
+    words made once by K4, its cached members read from the hot cache."""
+    import torch
+
+    from trinity_tpu_torch.ops import posmask as pm
+
+    put = lambda a: torch.from_numpy(a).to(ex.device)
+    cidx = g.ctx["cidx"]
+    masks = pm.materialize_posmask_tiles(
+        ex.bmeta, ex.planes, ex.hit_pw, ex.hit_off, put(g.arrays["cs"]),
+        put(g.arrays["cn"]), ex._pw_words) if (cidx < 0).any() else None
+    cache = ex.pos_planes if (cidx >= 0).any() else None
+    args = (masks, cache, put(g.arrays["members"]), put(g.arrays["weights"]),
+            None)
+    return (
+        "phrase", f"{name}: B={g.B}, K={g.T}, PW={ex._pw_words}, "
+        f"{int((cidx < 0).sum())} uncached and {int((cidx >= 0).sum())} "
+        f"cached members",
+        lambda a=args: pm.phrase_score_tiles(*a, scorer_name="bm25"),
+        lambda a=args: pm.phrase_score_tiles_ref(*a, scorer_name="bm25"),
+        lambda a=args: pm.phrase_score_bytes(a[0], a[1], a[2], a[4]),
+        lambda: "")
 
 
 PRUNED_CHUNK = 16  # search_pruned_batch's default chunk_windows
@@ -713,6 +743,9 @@ KERNEL_ROWS = {  # counter: (name, source, the TPU kernel it replaces)
     "posmask": ("materialize_posmask_tiles",
                 "trinity_tpu_torch/csrc/posmask.cu",
                 "trinity_tpu/ops/posmask.py:303"),
+    "phrase": ("phrase_score_tiles", "trinity_tpu_torch/csrc/phrasescore.cu",
+               "trinity_tpu/exec/executor.py:858 (XLA's fusion; no "
+               "pallas_call)"),
 }
 
 
@@ -932,7 +965,7 @@ def phase_slice(seg, queries, base_topk, phrase):
         log(f"[slice]   {name}: {n}/{n}")
     log(f"[slice] kernel launches in the main path: {launches}")
     if not all(launches[k] > 0 for k in ("decode", "flat", "tape",
-                                          "posmask")):
+                                          "posmask", "phrase")):
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
     nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     log(f"[slice] device bytes {ex.device_bytes_held} (segment "
@@ -1298,7 +1331,7 @@ def phase_collection(seg, queries, phrase):
     launches = dict(kernels.launches)
     log(f"[collection] (f) kernel launches in the phase: {launches}")
     if not all(launches[k] > 0 for k in ("decode", "flat", "tape",
-                                          "posmask")):
+                                          "posmask", "phrase")):
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
     return coll
 
@@ -1950,7 +1983,7 @@ def phase_mesh(seg, shards, queries, phrase, base_topk, single, m5, coll):
 # device functions the executor calls, timed one by one by --profile
 PROFILED = ("materialize_freq_tiles", "fused_flat_score_tiles",
             "fused_score_tiles", "materialize_posmask_tiles",
-            "phrase_freq_from_masks", "exact_window_topk", "topk_lowest_index",
+            "phrase_score_tiles", "exact_window_topk", "topk_lowest_index",
             "bound_select_candidates", "compact_mask", "verify_phrases_device")
 
 
@@ -2103,7 +2136,7 @@ def main():
         raise RuntimeError(f"the port loaded the JAX package: {loaded}")
     out = [dict(rows[k], route="cuda", launches=launches[k],
                 mesh_launches=mesh_launches[k])
-           for k in ("decode", "flat", "tape", "posmask")]
+           for k in ("decode", "flat", "tape", "posmask", "phrase")]
     log(json.dumps({"kernels": out}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,8 @@ from trinity_tpu_torch.ops.fusedscore import (
 from trinity_tpu_torch.ops.posmask import (
     materialize_posmask_tiles,
     materialize_posmask_tiles_ref,
+    phrase_score_tiles,
+    phrase_score_tiles_ref,
 )
 from trinity_tpu_torch.ops.postings import (
     compute_cells,
@@ -46,6 +48,7 @@ from trinity_tpu_torch.ops.postings import (
 )
 from trinity_tpu_torch.utils import kernels
 from torch_blocks import wide_blocks
+from torch_words import phrase_group
 
 pytestmark = pytest.mark.cuda
 
@@ -356,6 +359,7 @@ def test_main_path_counts_every_kernel(dev, seg, hot_cfg):
     assert pex._posmask_enabled
     pex.warmup(['"t0 t1"', '"t5 t6 t7"'])
     assert kernels.launches["posmask"] > 0
+    assert kernels.launches["phrase"] > 0
 
 
 def make_phrase_segment(seed=13, n_docs=40_000, vocab=60):
@@ -436,6 +440,72 @@ def test_phrase_executor_cuda_equals_cpu(dev, path):
         np.testing.assert_allclose([r.score for r in g],
                                    [r.score for r in w], rtol=RTOL, atol=0)
     assert sum(1 for w in out[1] if w) >= len(PHRASE_QUERIES) - 2
+
+
+# (B, K): search()'s one phrase, the mix's bigram and trigram groups, and
+# the longest phrase a query holds (MAX_PHRASE_SIZE)
+PHRASE_SHAPES = [(1, 2), (12, 2), (6, 3), (3, 16)]
+
+
+@pytest.mark.parametrize("dead", [False, True])
+@pytest.mark.parametrize("pw_words", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", PHRASE_SHAPES)
+def test_phrase_score_kernel_matches_plain(dev, shape, pw_words, dead):
+    """K5 against its plain version over three windows, each scorer with
+    its own split of the members between K4's words and the hot cache
+    (masks only, both, cache only): scores and sub-block maxima within
+    2 ulp, one launch a call."""
+    B, K = shape
+    for scorer, split in (("bm25", (K + 1, 0)), ("tfidf", (2, K)),
+                          ("trivial", (0, 3))):
+        group = phrase_group(B * 100 + K * 10 + pw_words, 3, B, K, pw_words,
+                             *split, dead, device=dev)
+        before = kernels.launches["phrase"]
+        got = phrase_score_tiles(*group, scorer_name=scorer)
+        want = phrase_score_tiles_ref(*group, scorer_name=scorer)
+        torch.cuda.synchronize()
+        assert kernels.launches["phrase"] == before + 1
+        assert got[0].shape == (B, 3, 128, 128) and got[1].shape == (B, 3, 16)
+        for g, w in zip(got, want):
+            assert_scores(g, w)
+        assert torch.isfinite(want[0]).any()
+
+
+def test_posph_groups_launch_one_phrase_kernel_each(dev):
+    """Pure phrases on the posmask route, some members in the hot cache,
+    with deleted docs: the card's top-k equals the CPU executor's (the
+    per-query loop of the plain version), one K5 launch a posph group;
+    match_ids of a phrase equals the CPU's."""
+    pseg = make_phrase_segment()
+    queries = ['"t0 t1"', '"t5 t6 t7"', '"t1 t0"', '"t6 t7"', '"t3 t3"',
+               '"t50 t51"', '"t5 t6"', '"t0 t1 t2 t3"']
+    cfg = get_config()
+    saved = (cfg.use_posmask, cfg.posmask_min_df)
+    configure(use_posmask=True, posmask_min_df=6000)
+    try:
+        out, ids = [], []
+        for d in (dev, "cpu"):
+            ex = Executor(pseg, d)
+            ex.set_masked_local_docs(np.arange(5, pseg.n_docs, 13))
+            groups = ex.plan_batch(queries)
+            assert {g.kind for g in groups} == {"posph"}
+            cidx = np.concatenate([g.ctx["cidx"] for g in groups])
+            assert (cidx >= 0).any() and (cidx < 0).any()
+            kernels.reset_launches()
+            out.append(ex.search_batch(queries, k=10))
+            if d == dev:
+                torch.cuda.synchronize()
+                assert kernels.launches["phrase"] == len(groups)
+            ids.append(ex.match_ids('"t5 t6"'))
+    finally:
+        configure(use_posmask=saved[0], posmask_min_df=saved[1])
+    for q, g, w in zip(queries, *out):
+        assert [r.doc_id for r in g] == [r.doc_id for r in w], q
+        np.testing.assert_allclose([r.score for r in g],
+                                   [r.score for r in w], rtol=RTOL, atol=0)
+    assert sum(1 for w in out[1] if w) >= len(queries) - 2
+    np.testing.assert_array_equal(ids[0], ids[1])
+    assert len(ids[1]) > 0
 
 
 def test_posmask_kernel_writes_a_cache_view(dev):

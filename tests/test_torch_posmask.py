@@ -15,6 +15,13 @@
   and the executor's hot cache, filled in place chunk by chunk, equals the
   plain version; posmask_bytes and decode_bytes give the byte counts
   worked out by hand.
+- phrase_score_tiles_ref (the plain version of the phrase score kernel)
+  equals the executor's former composition (phrase_freq_from_masks, then
+  score_tile, -inf outside live matches, then the sub-block amax) bit for
+  bit: K = 2, 3, 5, 16, PW = 1-4, every scorer, with and without deleted
+  docs, members repeated and mixed between masks and cache; its wrapper
+  raises on a bad dtype, shape, member count or word count;
+  phrase_score_bytes gives the count worked out by hand.
 Integer outputs: exact equality. Segments are built by both packages'
 builders (held equal); each side reads its own package's segment.
 """
@@ -27,8 +34,11 @@ import torch
 import trinity_tpu.ops.posmask as ref
 import trinity_tpu_torch.ops.posmask as port
 from torch_twins import build_pair, bulk_pair, reconfigured
+from torch_words import phrase_group
 from trinity_tpu.exec import Executor as JaxExecutor
 from trinity_tpu_torch import Executor
+from trinity_tpu_torch.models.similarity import score_tile
+from trinity_tpu_torch.ops.fusedscore import NEG_INF, NSUB, SUB_DOCS
 from trinity_tpu_torch.ops.postings import (
     C_BD,
     C_BF,
@@ -209,3 +219,95 @@ def test_posmask_bytes_by_hand():
         words + tables + block + groups)
     assert decode_bytes(bmeta, cs, cn) == 16384 * 4 + tables + block
     assert decode_bytes(bmeta, cs, cn, True) == 2 * 16384 * 4 + tables + block
+
+
+def former_composition(masks, cache, members, weights, deleted, scorer):
+    """The executor's posmask group before the phrase score kernel: one
+    phrase_freq_from_masks a query, score_tile, -inf outside live
+    matches, then the sub-block amax."""
+    B, K = members.shape
+    src = masks if masks is not None else cache
+    W, PW = src.shape[0], src.shape[2]
+    member = lambda v: masks[:, v] if v >= 0 else cache[:, -1 - v]
+    dead = None if deleted is None else deleted.bool()
+    rows = []
+    for b in range(B):
+        freq = port.phrase_freq_from_masks(
+            [member(v) for v in members[b].tolist()], K, PW)
+        live = freq > 0
+        if dead is not None:
+            live &= ~dead
+        sc = score_tile(scorer, freq.to(torch.float32), weights[b])
+        rows.append(torch.where(live, sc, NEG_INF))
+    scores = torch.stack(rows)
+    return scores, scores.reshape(B, W, NSUB, SUB_DOCS).amax(dim=3)
+
+
+@pytest.mark.parametrize("scorer", ["bm25", "tfidf", "trivial"])
+@pytest.mark.parametrize("PW", [1, 2, 3, 4])
+@pytest.mark.parametrize("K", [2, 3, 5, 16])
+def test_phrase_score_ref_equals_former_composition(K, PW, scorer):
+    kernels.reset_launches()
+    for dead, (n_masks, n_cache) in ((False, (K + 1, 0)), (True, (2, K)),
+                                     (True, (0, 3))):
+        group = phrase_group(K * 10 + PW, 2, 4, K, PW, n_masks, n_cache,
+                             dead)
+        want = former_composition(*group, scorer)
+        got = port.phrase_score_tiles(*group, scorer_name=scorer)
+        ref_got = port.phrase_score_tiles_ref(*group, scorer_name=scorer)
+        for g, r, w in zip(got, ref_got, want):
+            assert g.dtype == torch.float32
+            assert torch.equal(g, w) and torch.equal(r, w)
+        assert got[1].shape == (4, 2, NSUB)
+        fin = torch.isfinite(want[0])
+        assert fin.any() and not fin.all()  # matches and -inf both occur
+    assert kernels.launches["phrase"] == 0  # CPU tensors: no launch
+
+
+def test_phrase_score_wrapper_raises():
+    masks, cache, members, weights, deleted = phrase_group(1, 1, 2, 3, 2, 2,
+                                                           2, True)
+    call = lambda **kw: port.phrase_score_tiles(
+        **{**dict(masks=masks, cache=cache, members=members, weights=weights,
+                  deleted=deleted), **kw}, scorer_name="bm25")
+    call()
+    with pytest.raises(TypeError):
+        call(masks=masks.to(torch.int64))
+    with pytest.raises(TypeError):
+        call(weights=weights.double())
+    with pytest.raises(TypeError):
+        call(deleted=deleted.bool())
+    with pytest.raises(ValueError):
+        call(masks=masks[0])  # 4-D
+    with pytest.raises(ValueError):
+        call(cache=torch.cat([cache, cache]))  # windows disagree
+    with pytest.raises(ValueError):
+        call(members=members.reshape(-1))
+    with pytest.raises(ValueError):
+        call(weights=weights[:1])
+    with pytest.raises(ValueError):
+        call(deleted=deleted[:, :64])
+    with pytest.raises(ValueError):
+        call(masks=None, cache=None)
+    with pytest.raises(ValueError):  # K above MAX_PHRASE_SIZE
+        call(members=torch.zeros((2, 17), dtype=torch.int32))
+    with pytest.raises(ValueError):  # PW = 0
+        call(masks=masks[:, :, :0], cache=None)
+    with pytest.raises(ValueError):  # PW above MAX_PW
+        call(masks=torch.zeros((1, 1, port.MAX_PW + 1, 128, 128),
+                               dtype=torch.int32), cache=None)
+
+
+def test_phrase_score_bytes_by_hand():
+    """Two queries of three members over W = 2, PW = 3: four distinct
+    columns read once, two queries' scores and maxima written, the table,
+    the weights and the deletion tiles."""
+    masks, cache, _, weights, deleted = phrase_group(2, 2, 2, 3, 3, 3, 2,
+                                                     True)
+    members = torch.tensor([[0, 1, -1], [1, 1, 2]], dtype=torch.int32)
+    words = 4 * 2 * 3 * 16384 * 4
+    out = 2 * 2 * (16384 + 16) * 4
+    assert port.phrase_score_bytes(masks, cache, members, deleted) == (
+        words + out + 6 * 4 + 2 * 4 + 2 * 16384 * 4)
+    assert port.phrase_score_bytes(masks, cache, members, None) == (
+        words + out + 6 * 4 + 2 * 4)

@@ -12,7 +12,7 @@ segment arrays are uploaded on first use through the residency manager
 the reference's, in the port's own copies (``exec/planning.py``:
 ``_plan_for_text``, ``_flatten_tape``, ``_pad_T``, ``_pick_bucket``, the
 phrase C/C2 buckets; ``config.batch_buckets``); the device side is torch
-plus the four CUDA kernels. Groups of one plan shape share a launch:
+plus the five CUDA kernels. Groups of one plan shape share a launch:
 
   - "flat" (AND/OR/NOT/k-of-n/optional, at most 8 slots): the flat fused
     score kernel, structure as data (ops/fusedscore.py);
@@ -23,8 +23,9 @@ plus the four CUDA kernels. Groups of one plan shape share a launch:
   - "posph" (pure phrases where positions are distinct per (term, doc)
     and below 32 * posmask_max_words): the posmask kernel scatters each
     distinct member's position words (or reads them from the posmask hot
-    cache), phrase freq = popcount(AND of shifted words) for every doc
-    (ops/posmask.py);
+    cache), then the phrase score kernel gives every query's phrase freq
+    = popcount(AND of shifted words), score and sub-block maxima for every
+    doc in one launch (ops/posmask.py);
   - "lazyph" (other pure phrases): the decode kernel with hit offsets, the
     exact top-C2 candidates by min member freq (ops/select.py), position
     verification on the device (exec/phrases.py), a top-k and a
@@ -54,9 +55,10 @@ reference's names: ``search.queries``, ``search.batch_latency``,
 handle) around ``exec.prepare`` (``plan_batch``) and one
 ``exec.group.<kind>`` per group, ``exec.finish`` (``finish_batch`` /
 ``finish_rows``) around ``exec.device`` (the wait and the copies back);
-``exec.phrase`` around the phrase work on the host (the posmask member
-loop, position verification, the host verifier, the lazy reruns). The
-counter ``plan.df_lookups`` adds each plan's ``df_of`` calls.
+``exec.phrase`` around the phrase work on the host (a posmask group's
+phrase score launch, position verification, the host verifier, the lazy
+reruns). The counter ``plan.df_lookups`` adds each plan's ``df_of``
+calls.
 Phrase groups are not padded to a batch bucket: eager torch compiles
 nothing per shape.
 
@@ -105,8 +107,6 @@ from trinity_tpu_torch.limits import MAX_SEGMENT_DOCS, TILE, WINDOW_SIZE
 from trinity_tpu_torch.models.similarity import SIMILARITIES, score_tile
 from trinity_tpu_torch.ops.fusedscore import (
     NEG_INF,
-    NSUB,
-    SUB_DOCS,
     eval_tape_tiles,
     exact_window_topk,
     fused_flat_score_tiles,
@@ -117,7 +117,7 @@ from trinity_tpu_torch.ops.fusedscore import (
 from trinity_tpu_torch.ops.posmask import (
     POS_GUARD_ROWS,
     materialize_posmask_tiles,
-    phrase_freq_from_masks,
+    phrase_score_tiles,
 )
 from trinity_tpu_torch.ops.postings import (
     compute_cells,
@@ -585,9 +585,10 @@ class Executor:
         a = {n: self._put(v) for n, v in g.arrays.items()}
         if g.kind in ("flat", "fused"):
             scores = self._score_tiles(g, a, scorer)[0]
+        elif g.kind == "posph":
+            scores = self._posph_scores(g, a, scorer)[0]
         else:
             scores = {"dense": self._dense_scores,
-                      "posph": self._posph_scores,
                       "phrase": self._compound_scores}[g.kind](g, a, scorer)
         local = torch.nonzero(scores.reshape(-1) > NEG_INF).reshape(-1)
         return self.seg.doc_map[local.cpu().numpy()]
@@ -737,11 +738,9 @@ class Executor:
         if g.kind == "lazyhost":
             return (*self._run_lazyhost(g, a, k, scorer), None)
         if g.kind == "posph":
-            B, W = g.B, self.seg.n_windows
-            scores = self._posph_scores(g, a, scorer)
-            rmax = scores.reshape(B, W, NSUB, SUB_DOCS).amax(dim=3)
+            scores, rmax = self._posph_scores(g, a, scorer)
             return (*exact_window_topk(
-                scores, rmax[..., None].expand(B, W, NSUB, TILE), k), None)
+                scores, rmax[..., None].expand(*rmax.shape, TILE), k), None)
         run = {"dense": self._dense_scores, "phrase": self._compound_scores}
         scores = run[g.kind](g, a, scorer)
         return (*topk_lowest_index(scores.reshape(g.B, -1), k), None)
@@ -820,9 +819,11 @@ class Executor:
         """Posmask group (the reference's ``_prep_phrase_pos``): the
         members' distinct terms, `memidx` (query, member) -> distinct term,
         and for each distinct term its posmask hot-cache row `cidx` (-1 when
-        uncached) and its column `kcol` of the kernel's output. The cell
-        tables hold the uncached terms only, with no bucket pad: the kernel
-        writes no cell that nothing reads. None (the lazy path runs) when no
+        uncached) and its column `kcol` of the posmask kernel's output;
+        the phrase score kernel's table "members" gives each (query,
+        member) its column, or -1 - its cache row. The cell tables hold the
+        uncached terms only, with no bucket pad: the kernel writes no cell
+        that nothing reads. None (the lazy path runs) when no
         member has a block and nothing is cached: the masks would all be
         zero. The reference also fell back on a DMA-bucket overflow; the
         CUDA kernel has no buckets (ops/posmask.py)."""
@@ -845,43 +846,30 @@ class Executor:
                                      if c < 0])
         if not (cidx >= 0).any() and not cn.any():
             return None
-        arrays = {"cs": cs, "cn": cn,
+        src = np.where(cidx < 0, kcol, -1 - cidx).astype(np.int32)
+        arrays = {"cs": cs, "cn": cn, "members": src[memidx],
                   "weights": self._member_weights(key, members, ctx)}
-        return Group("posph", key, members, K, B, arrays,
-                     dict(memidx=memidx, cidx=cidx, kcol=kcol))
+        return Group("posph", key, members, K, B, arrays, dict(cidx=cidx))
 
     def _posph_scores(self, g: Group, a: dict, scorer: str):
-        """Position words of the group's terms (kernel, or the hot cache),
-        every doc's phrase freq per query and its score (the reference's
-        ``_build_phrase_pos_fused``): (B, W, 128, 128), -inf outside the
-        match."""
-        W, B, K, PW = self.seg.n_windows, g.B, g.T, self._pw_words
-        cidx, kcol = g.ctx["cidx"], g.ctx["kcol"]
+        """Position words of the group's uncached terms (K4), then every
+        query's phrase freq, score and sub-block maxima from them and the
+        hot cache in one call (the reference's ``_build_phrase_pos_fused``):
+        scores (B, W, 128, 128), -inf outside the match, and maxima
+        (B, W, 16)."""
+        cidx = g.ctx["cidx"]
         masks = cache = None
         if (cidx < 0).any():
             masks = materialize_posmask_tiles(
                 self.bmeta, self.planes, self.hit_pw, self.hit_off, a["cs"],
-                a["cn"], PW,
+                a["cn"], self._pw_words,
             )  # (W, uncached terms, PW, 128, 128)
         if (cidx >= 0).any():
             cache = self.pos_planes
-        member = lambda mi: (masks[:, int(kcol[mi])] if cidx[mi] < 0
-                             else cache[:, int(cidx[mi])])
-        dead = None if self._deleted is None else self._deleted.reshape(
-            W, TILE, TILE)
-        scores = torch.empty((B, W, TILE, TILE), device=self.device)
         with trace("exec.phrase"):
-            for b in range(B):
-                freq = phrase_freq_from_masks(
-                    [member(mi) for mi in g.ctx["memidx"][b]], K, PW
-                )  # (W, 128, 128)
-                live = freq > 0
-                if dead is not None:
-                    live &= ~dead
-                sc = score_tile(scorer, freq.to(torch.float32),
-                                a["weights"][b])
-                scores[b] = torch.where(live, sc, NEG_INF)
-        return scores
+            return phrase_score_tiles(masks, cache, a["members"],
+                                      a["weights"], self._deleted_tiles,
+                                      scorer_name=scorer)
 
     def _prep_phrase_lazy(self, key, members, k, ctx) -> Group:
         """Lazy group (the reference's ``_prep_phrase_lazy``): cell tables,

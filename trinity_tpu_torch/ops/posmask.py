@@ -16,6 +16,25 @@ are distinct per (term, doc), which the executor's gate checks.
 
 The CUDA kernel lives in ``csrc/posmask.cu``.
 
+``phrase_score_tiles`` then scores a whole posmask phrase group in one
+launch (``csrc/phrasescore.cu``): for each query b of the group and each
+doc, the phrase frequency of its K members (words from the posmask call's
+output or from the posmask hot cache, as a (B, K) table says), the doc's
+liveness (frequency above 0, not deleted), the similarity in the plain
+version's f32 order, -inf where nothing matches, and each 1024-doc
+sub-block's maximum. The reference ran the same per-query loop inside one
+jitted XLA program (``trinity_tpu/exec/executor.py:858
+_build_phrase_pos_fused``), which fused it; it had no ``pallas_call`` of
+its own. Run eagerly op by op, the loop cost ~20 int64 torch ops a member
+query, each streaming the group's words widened to int64. The kernel is
+bound by bytes: it reads each (query, member)'s PW words per doc once with
+16-byte loads (a member that several queries share comes from L2: the
+query is the grid's fastest index) and writes the scores once. A thread
+owns 4 docs and streams the words upwards, holding only words pw and
+pw + 1 of each member, so any PW fits in registers and K is a template
+argument (1..16, MAX_PHRASE_SIZE). ``phrase_score_bytes`` counts what one
+call must move.
+
 Source note — what it replaces and what bounds it on the H100:
   replaces ``trinity_tpu/ops/posmask.py:303 materialize_posmask_tiles``
   (Pallas body ``_make_posmask_kernel``). The TPU kernel scattered position
@@ -46,7 +65,9 @@ from __future__ import annotations
 
 import torch
 
-from trinity_tpu_torch.limits import TILE, WINDOW_SIZE
+from trinity_tpu_torch.limits import MAX_PHRASE_SIZE, TILE, WINDOW_SIZE
+from trinity_tpu_torch.models.similarity import SCORER_CODE, score_tile
+from trinity_tpu_torch.ops.fusedscore import NEG_INF, NSUB, SUB_DOCS
 from trinity_tpu_torch.ops.postings import (
     _U32,
     _bitfield,
@@ -230,3 +251,113 @@ def phrase_freq_from_masks(masks, k_members: int, pw_words: int):
             wm = (wm >> m) | ((nxt << (32 - m)) & _U32)
         acc = wm if acc is None else acc & wm
     return popcount32(acc).sum(dim=1).to(torch.int32)
+
+
+def phrase_score_tiles_ref(masks, cache, members, weights, deleted, *,
+                           scorer_name):
+    """Plain torch version of the phrase score kernel (same contract as
+    phrase_score_tiles): the executor's per-query loop, one
+    phrase_freq_from_masks a member query."""
+    B, K = members.shape
+    src = masks if masks is not None else cache
+    W, PW = src.shape[0], src.shape[2]
+    member = lambda v: masks[:, v] if v >= 0 else cache[:, -1 - v]
+    scores = torch.empty((B, W, TILE, TILE), device=src.device)
+    for b, row in enumerate(members.tolist()):
+        freq = phrase_freq_from_masks([member(v) for v in row], K, PW)
+        live = freq > 0
+        if deleted is not None:
+            live &= deleted == 0
+        sc = score_tile(scorer_name, freq.to(torch.float32), weights[b])
+        scores[b] = torch.where(live, sc, NEG_INF)
+    rmax = scores.reshape(B, W, NSUB, SUB_DOCS).amax(dim=3)
+    return scores, rmax
+
+
+def _check_phrase_args(masks, cache, members, weights, deleted):
+    """The group's shapes (W, PW, B, K); raises on a bad dtype, device,
+    shape, member count, word count or alignment."""
+    src = masks if masks is not None else cache
+    if src is None:
+        raise ValueError("phrase_score_tiles needs masks or a cache")
+    dev = src.device
+    W, PW = src.shape[0], src.shape[2]
+    for t, name in ((masks, "masks"), (cache, "cache")):
+        if t is None:
+            continue
+        _check(t, name, torch.int32, dev)
+        if t.dim() != 5 or t.shape[3:] != (TILE, TILE):
+            raise ValueError(f"{name} must be (W, columns, PW, 128, 128)")
+        if t.shape[0] != W or t.shape[2] != PW:
+            raise ValueError("masks and cache must agree on W and PW")
+    _check(members, "members", torch.int32, dev)
+    _check(weights, "weights", torch.float32, dev)
+    if members.dim() != 2:
+        raise ValueError("members must be (B, K)")
+    B, K = members.shape
+    if weights.shape != (B,):
+        raise ValueError("weights must be (B,)")
+    if not 1 <= K <= MAX_PHRASE_SIZE:
+        raise ValueError(f"a phrase has 1..{MAX_PHRASE_SIZE} members")
+    if not 1 <= PW <= MAX_PW:
+        raise ValueError(f"pw_words must be in [1, {MAX_PW}]")
+    if deleted is not None:
+        _check(deleted, "deleted", torch.float32, dev)
+        if deleted.shape != (W, TILE, TILE):
+            raise ValueError("deleted must be (W, 128, 128)")
+    for t, name in ((masks, "masks"), (cache, "cache"), (deleted, "deleted")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+    return W, PW, B, K
+
+
+def phrase_score_tiles(
+    masks,  # (W, M, PW, 128, 128) i32 words of the posmask call, or None
+    cache,  # (W, C, PW, 128, 128) i32 posmask hot cache, or None
+    members,  # (B, K) i32: v >= 0 column v of masks, v < 0 row -1 - v of cache
+    weights,  # (B,) f32 phrase weight of each query
+    deleted,  # (W, 128, 128) f32 (1.0 = masked) or None
+    *,
+    scorer_name: str,
+):
+    """A posmask phrase group's scores: (B, W, 128, 128) f32, -inf where
+    query b's phrase does not occur in a live doc, and the sub-block maxima
+    (B, W, 16) f32 (module doc). Every tensor contiguous; the word tensors
+    and `deleted` 16-byte aligned. The kernel trusts `members` to name
+    existing columns and rows: checking them would wait for the card.
+
+    On CUDA tensors this launches the phrase score kernel
+    (csrc/phrasescore.cu); on CPU tensors it runs phrase_score_tiles_ref."""
+    W, PW, B, K = _check_phrase_args(masks, cache, members, weights, deleted)
+    dev = members.device
+    if dev.type != "cuda":
+        return phrase_score_tiles_ref(masks, cache, members, weights, deleted,
+                                      scorer_name=scorer_name)
+    from trinity_tpu_torch.utils import kernels
+
+    scores = torch.empty((B, W, TILE, TILE), dtype=torch.float32, device=dev)
+    rmax = torch.empty((B, W, NSUB), dtype=torch.float32, device=dev)
+    if B * W:
+        kernels.launch(
+            "phrase", "trin_phrase_score",
+            masks, cache, members, weights, deleted, W, B, K,
+            0 if masks is None else masks.shape[1],
+            0 if cache is None else cache.shape[1], PW,
+            SCORER_CODE[scorer_name], scores, rmax,
+        )
+    return scores, rmax
+
+
+def phrase_score_bytes(masks, cache, members, deleted) -> int:
+    """Bytes one phrase_score_tiles call must move: each distinct member
+    column's words read once (W * PW * 64 KiB), the scores and sub-block
+    maxima written once (B * W * (64 KiB + 64 B)), the members table, the
+    weights and the deletion tiles. A member that several queries share
+    counts once (the kernel reads it again from L2)."""
+    B, K = members.shape
+    src = masks if masks is not None else cache
+    W, PW = src.shape[0], src.shape[2]
+    distinct = len(torch.unique(members))
+    return (distinct * W * PW * WINDOW_SIZE * 4
+            + B * W * (WINDOW_SIZE + NSUB) * 4 + B * K * 4 + B * 4
+            + (0 if deleted is None else W * WINDOW_SIZE * 4))

@@ -36,7 +36,7 @@ from trinity_tpu_torch.utils import seal
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("postings.cu", "fusedscore.cu", "posmask.cu")
+SOURCES = ("postings.cu", "fusedscore.cu", "posmask.cu", "phrasescore.cu")
 HEADERS = ("decode.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,6 +51,7 @@ _SIGNATURES = {
     "trin_flat_score": "ppppppppp" "iip" "iiii" "pp",
     "trin_tape_score": "pppppip" "piipi" "p" "iip" "iiii" "pp",
     "trin_posmask_tiles": "pppppp" "iii" "pll",
+    "trin_phrase_score": "ppppp" "iiiiiii" "pp",
 }
 
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): device
@@ -58,7 +59,7 @@ _SIGNATURES = {
 H100_BYTES_PER_S = 3.35e12
 H100_F32_PER_S = 67e12
 
-launches = {"decode": 0, "flat": 0, "tape": 0, "posmask": 0}
+launches = {"decode": 0, "flat": 0, "tape": 0, "posmask": 0, "phrase": 0}
 build_info: dict = {}
 _lib = None
 _load_lock = threading.Lock()  # one build and bind per process
