@@ -508,6 +508,48 @@ def test_posph_groups_launch_one_phrase_kernel_each(dev):
     assert len(ids[1]) > 0
 
 
+def test_lazy_workspace_fixes_the_peak(dev, monkeypatch):
+    """Once a first lazy batch has reserved the executor's workspace, two
+    lazy batches of different sizes raise max_memory_allocated by the same
+    bytes: with a workspace of one row, each chunk is one row of the same
+    phrase, whatever the group's size (an unchunked group held every row
+    at once). Their answers equal the CPU executor's."""
+    from trinity_tpu_torch.exec import executor as executor_mod
+
+    pseg = make_phrase_segment()
+    q = '"t0 t1"'
+    cfg = get_config()
+    saved = cfg.use_posmask
+    configure(use_posmask=False)
+    try:
+        ex = Executor(pseg, dev)
+        (g,) = ex.plan_batch([q])
+        assert g.kind == "lazyph"
+        monkeypatch.setattr(
+            executor_mod, "LAZY_WORKSPACE_BYTES",
+            executor_mod._lazy_bytes(pseg.n_windows, 1, g.T, 2, g.ctx["C2"],
+                                     True))
+        ex.search_batch([q] * 2, k=10)
+        rises, out = [], []
+        for m in (3, 6):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            out.append(ex.search_batch([q] * m, k=10))
+            torch.cuda.synchronize()
+            rises.append(torch.cuda.max_memory_allocated(dev) - base)
+        want = Executor(pseg, "cpu").search_batch([q], k=10)[0]
+    finally:
+        configure(use_posmask=saved)
+    assert rises[0] == rises[1] > 0
+    assert ex._lazy_ws.numel() == executor_mod.LAZY_WORKSPACE_BYTES
+    assert len(want) == 10
+    for res in out[0] + out[1]:
+        assert [r.doc_id for r in res] == [r.doc_id for r in want]
+        np.testing.assert_allclose([r.score for r in res],
+                                   [r.score for r in want], rtol=RTOL, atol=0)
+
+
 def test_posmask_kernel_writes_a_cache_view(dev):
     """K4 into a strided destination (members 2..4 of a 6-member cache)
     equals the plain version and leaves the rest of the cache untouched;

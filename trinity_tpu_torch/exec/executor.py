@@ -29,7 +29,9 @@ plus the five CUDA kernels. Groups of one plan shape share a launch:
   - "lazyph" (other pure phrases): the decode kernel with hit offsets, the
     exact top-C2 candidates by min member freq (ops/select.py), position
     verification on the device (exec/phrases.py), a top-k and a
-    `resolved` flag; an unresolved query reruns alone as a compound group;
+    `resolved` flag, in row chunks inside the executor's fixed workspace
+    (LAZY_WORKSPACE_BYTES); an unresolved query reruns alone as a
+    compound group;
   - "phrase" (phrases inside boolean trees): the decode kernel with hit
     offsets, the first C candidates per window of each phrase (pass A),
     verification, the tape with the verified phrase tiles (pass C);
@@ -72,6 +74,7 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import math
 import threading
 import time
 from dataclasses import dataclass, field
@@ -103,7 +106,12 @@ from trinity_tpu_torch.exec.phrases import (
 )
 from trinity_tpu_torch.exec.residency import get_residency
 from trinity_tpu_torch.index.format import SegmentData
-from trinity_tpu_torch.limits import MAX_SEGMENT_DOCS, TILE, WINDOW_SIZE
+from trinity_tpu_torch.limits import (
+    MAX_PHRASE_SIZE,
+    MAX_SEGMENT_DOCS,
+    TILE,
+    WINDOW_SIZE,
+)
 from trinity_tpu_torch.models.similarity import SIMILARITIES, score_tile
 from trinity_tpu_torch.ops.fusedscore import (
     NEG_INF,
@@ -140,6 +148,22 @@ from trinity_tpu_torch.utils.timings import get_tracer, trace
 FUSED_MAX_SLOTS = 8
 HOT_CHUNK = 8  # terms per kernel launch when building the hot-term caches
 HOST_VERIFY_CHUNK = 2048  # candidates per step of the lazy host route
+# The lazy phrase routes' device workspace: one buffer per executor,
+# reserved at its first lazy group (so warm-up allocates it). A lazy group
+# runs in chunks of rows (queries) that fit it; _lazy_layout lists a
+# chunk's views. A row holds its decode tiles (f32 freqs and i32 hit
+# offsets of its T cells over the segment's n docids), its f32 bound, its
+# candidates (C + 1 i32 slots and C flags, device route only) and its K
+# members' freqs and hit offsets at them (i32): 8Tn + 4n + 5C + 8KC bytes.
+# At n = 524,288 (32 windows) and the top C2 bucket (C = n) a bigram row
+# (T = 2) takes 41n = 21.5 MB and a trigram row (T = 4) 65n = 34 MB, so
+# LAZY_WORKSPACE_BYTES = 64 MiB holds three bigram rows or one trigram row,
+# where an unchunked group held every row at once. A smaller segment
+# reserves only its widest row (T = K = MAX_PHRASE_SIZE, C = n: 265n
+# bytes) when that is less. A row larger than the workspace (a top-bucket
+# trigram row at about 1M docids) runs alone in a buffer of its own.
+LAZY_WORKSPACE_BYTES = 64 << 20
+_ALIGN = 256  # bytes: each view of the workspace starts on this boundary
 _SERIALS = itertools.count()  # names an executor's caches for the seal
 
 # kinds whose launch depends on the tape itself (the rest take it as data)
@@ -147,6 +171,51 @@ TAPE_KINDS = ("fused", "dense", "phrase")
 
 __all__ = ["ExecFlags", "Executor", "SearchResult", "plan_queries",
            "state_from_numpy", "warmup_driver"]
+
+
+def _lazy_layout(W: int, R: int, T: int, K: int, C: int,
+                 select: bool) -> list:
+    """The views of a lazy chunk of R rows in the workspace, in carving
+    order, as (shape, dtype): decode tiles and hit offsets, the bound,
+    with `select` (the device route) the candidates' slots and flags, and
+    the members' freqs and hit offsets at C candidates."""
+    tiles = (W, R * T, TILE, TILE)
+    views = [(tiles, torch.float32), (tiles, torch.int32),
+             ((R, W * WINDOW_SIZE), torch.float32)]
+    if select:
+        views += [((R, C + 1), torch.int32), ((R, C), torch.bool)]
+    return views + [((R, C, K), torch.int32)] * 2
+
+
+def _lazy_bytes(W: int, R: int, T: int, K: int, C: int,
+                select: bool) -> int:
+    """Workspace bytes of a lazy chunk (_lazy_layout), each view rounded
+    up to _ALIGN; never more than R times a row's."""
+    return sum(-(-math.prod(shape) * dt.itemsize // _ALIGN) * _ALIGN
+               for shape, dt in _lazy_layout(W, R, T, K, C, select))
+
+
+def _lazy_workspace_bytes(W: int) -> int:
+    """An executor's workspace over W windows: LAZY_WORKSPACE_BYTES, or
+    the widest row the segment can run when that is less."""
+    widest = _lazy_bytes(W, 1, _pad_T(MAX_PHRASE_SIZE), MAX_PHRASE_SIZE,
+                         W * WINDOW_SIZE, True)
+    return min(LAZY_WORKSPACE_BYTES, widest)
+
+
+class _Carve:
+    """Consecutive views of one byte buffer, each on an _ALIGN boundary."""
+
+    def __init__(self, buf: torch.Tensor):
+        self.buf, self.at = buf, 0
+
+    def take(self, shape: tuple, dtype) -> torch.Tensor:
+        nbytes = math.prod(shape) * dtype.itemsize
+        if self.at + nbytes > self.buf.numel():
+            raise ValueError(f"workspace of {self.buf.numel()} bytes overrun")
+        view = self.buf[self.at : self.at + nbytes].view(dtype).view(shape)
+        self.at += -(-nbytes // _ALIGN) * _ALIGN
+        return view
 
 
 def warmup_driver(target, queries, k, scorer, batch, threads) -> dict:
@@ -310,6 +379,10 @@ class Executor:
         # warmup searches from many threads, and N racing builds would
         # hold N copies of a cache (~1.9 GB on the bench deployment)
         self._cache_lock = threading.Lock()
+        # the lazy routes' workspace (_lazy_workspace_bytes), reserved at
+        # the first lazy group; a lazy group holds the lock while it uses it
+        self._lazy_ws = None
+        self._lazy_lock = threading.Lock()
         self._serial = next(_SERIALS)
         self._tf_planes = None
         self._hot = self._hot_terms(cfg.hot_cache_bytes, cfg.hot_cache_min_df,
@@ -344,10 +417,11 @@ class Executor:
     @property
     def device_bytes_held(self) -> int:
         """Bytes this executor holds on its device now: the segment arrays
-        while resident, the hot-term caches once built, the deletion
-        masks."""
+        while resident, the hot-term caches once built, the lazy routes'
+        workspace once reserved, the deletion masks."""
         ts = (*(self._dev or {}).values(), self._tf_planes,
-              self._pos_planes, self._deleted_tiles, self._deleted)
+              self._pos_planes, self._lazy_ws, self._deleted_tiles,
+              self._deleted)
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
     # --------------------------------------------------- device residency
@@ -901,110 +975,189 @@ class Executor:
                      dict(ctx, C2=C2, fcaps=fcaps[0],
                           no_overflow=total_bound <= C2))
 
-    def _member_tiles(self, g: Group, a: dict):
-        """Decode a pure-phrase group: per member, (B, n) freqs and hit
-        offsets over the whole segment, and bound = min member freq."""
-        B, n = g.B, self.seg.n_windows * WINDOW_SIZE
-        freq, offv = self._decode_batch(g, a, with_offsets=True)
-        mf = [freq[:, :, s].reshape(B, n) for s in g.tape[1]]
-        mo = [offv[:, :, s].reshape(B, n) for s in g.tape[1]]
-        bound = mf[0]
-        for f in mf[1:]:
-            bound = torch.minimum(bound, f)  # 0 if any member is missing
-        return mf, mo, bound.to(torch.int32)
+    def _lazy_rows(self, g: Group, C: int, select: bool) -> int:
+        """Rows a chunk of lazy group `g` takes: as many as the workspace
+        holds at C candidates a row, at least one."""
+        W = self.seg.n_windows
+        row = _lazy_bytes(W, 1, g.T, len(g.tape[1]), C, select)
+        return max(1, min(g.B, _lazy_workspace_bytes(W) // row))
+
+    def _lazy_chunk(self, g: Group, a: dict, r0: int, r1: int, C: int,
+                    select: bool):
+        """Decode rows r0:r1 of a lazy group into the workspace (the
+        caller holds ``_lazy_lock``; a chunk larger than the workspace, a
+        single row, gets a buffer of its own) and carve every view of the
+        chunk (_lazy_layout). Returns the (R, n) f32 bound = min member
+        freq (0 where a member is missing), with `select` the (R, C + 1)
+        i32 and (R, C) bool views for bound_select_candidates' ``out=``
+        (else None), and gather(ki), which writes each member's freq and
+        hit offset at candidates ki (R, C) into (R, C, K) i32 views and
+        returns them. The views are reused by the next chunk in stream
+        order: a lazy group runs on one stream."""
+        W, T, R = self.seg.n_windows, g.T, r1 - r0
+        slots = g.tape[1]
+        n = W * WINDOW_SIZE
+        nbytes = _lazy_bytes(W, R, T, len(slots), C, select)
+        size = _lazy_workspace_bytes(W)
+        if nbytes > size:
+            buf = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+        else:
+            if self._lazy_ws is None:
+                self._lazy_ws = torch.empty(size, dtype=torch.uint8,
+                                            device=self.device)
+            buf = self._lazy_ws
+        ws = _Carve(buf)
+        tiles, offs, bound, *rest = [
+            ws.take(shape, dt)
+            for shape, dt in _lazy_layout(W, R, T, len(slots), C, select)]
+        sel = tuple(rest[:2]) if select else None
+        pf, po = rest[-2:]
+        cols = slice(r0 * T, r1 * T)
+        materialize_freq_tiles(self.bmeta, self.planes,
+                               a["cs"][:, cols].contiguous(),
+                               a["cn"][:, cols].contiguous(),
+                               with_offsets=True, out=tiles, offs_out=offs)
+        per = tiles.view(W, R, T, WINDOW_SIZE)
+        bview = bound.view(R, W, WINDOW_SIZE).transpose(0, 1)
+        bview.copy_(per[:, :, slots[0]])
+        for s in slots[1:]:
+            torch.minimum(bview, per[:, :, s], out=bview)
+        # flat index of (window, row, slot 0, lane) in the tiles; slot s
+        # is s * WINDOW_SIZE further
+        row0 = torch.arange(R, device=self.device) * (T * WINDOW_SIZE)
+
+        def gather(ki):
+            k64 = ki.to(torch.int64)
+            base = ((k64 // WINDOW_SIZE) * (R * T * WINDOW_SIZE)
+                    + k64 % WINDOW_SIZE + row0[:, None])
+            for j, s in enumerate(slots):
+                idx = base + s * WINDOW_SIZE
+                pf[..., j] = tiles.view(-1)[idx]
+                po[..., j] = offs.view(-1)[idx]
+            return pf, po
+
+        return bound, sel, gather
 
     def _run_lazyph(self, g: Group, a: dict, k: int, scorer: str):
         """Exact top-C2 candidates by (min member freq desc, docid asc),
         verified on the device, scored, top-k, and a `resolved` flag: False
         when the conjunction overflowed C2 and the k-th score does not beat
         the best unpulled bound (the reference's
-        ``_build_phrase_lazy_fused``)."""
+        ``_build_phrase_lazy_fused``). Rows run in workspace-sized chunks
+        (counter ``phrase.lazy_chunks``); each row's answer is its own."""
         C2, fcaps = g.ctx["C2"], g.ctx["fcaps"]
-        mf, mo, bound = self._member_tiles(g, a)
-        ki, valid, tau, overflow = bound_select_candidates(
-            bound, C2, vmax=min(fcaps), assume_no_overflow=g.ctx["no_overflow"]
-        )
-        pf = torch.stack([gather_cols(f, ki) for f in mf], -1).to(torch.int32)
-        po = torch.stack([gather_cols(o, ki) for o in mo], -1)
-        with trace("exec.phrase"):
-            pfreq = verify_phrases_device(self.hit_pw, self.hit_off, valid,
-                                          pf, po, fcaps)
-        live = (pfreq > 0) & valid
-        if self._deleted is not None:
-            live &= ~self._deleted[ki.long()]
-        w = a["weights"]
-        score = score_tile(scorer, pfreq.to(torch.float32), w[:, None])
-        # candidates lie in docid order: the stable top-k keeps docid-asc
-        kk = min(k, C2)
-        gv, gidx = topk_lowest_index(torch.where(live, score, NEG_INF), kk)
-        gi = torch.gather(ki.long(), 1, gidx)
-        if kk < k:  # C2 below k: resolves only without overflow
-            gv = torch.nn.functional.pad(gv, (0, k - kk), value=NEG_INF)
-            gi = torch.nn.functional.pad(gi, (0, k - kk))
-        thresh = score_tile(scorer, tau.to(torch.float32), w)
-        return gv, gi, ~overflow | (gv[:, k - 1] > thresh)
+        B = g.B
+        dev = self.device
+        kk = min(k, C2)  # C2 below k: resolves only without overflow
+        gv = torch.full((B, k), NEG_INF, device=dev)
+        gi = torch.zeros((B, k), dtype=torch.int64, device=dev)
+        resolved = torch.empty(B, dtype=torch.bool, device=dev)
+        rows = self._lazy_rows(g, C2, True)
+        with self._lazy_lock:
+            for r0 in range(0, B, rows):
+                r1 = min(r0 + rows, B)
+                bound, sel, gather = self._lazy_chunk(g, a, r0, r1, C2, True)
+                ki, valid, tau, overflow = bound_select_candidates(
+                    bound, C2, vmax=min(fcaps),
+                    assume_no_overflow=g.ctx["no_overflow"], out=sel)
+                pf, po = gather(ki)
+                with trace("exec.phrase"):
+                    pfreq = verify_phrases_device(self.hit_pw, self.hit_off,
+                                                  valid, pf, po, fcaps)
+                live = (pfreq > 0) & valid
+                if self._deleted is not None:
+                    live &= ~self._deleted[ki.long()]
+                w = a["weights"][r0:r1]
+                score = score_tile(scorer, pfreq.to(torch.float32),
+                                   w[:, None])
+                # candidates lie in docid order: the stable top-k keeps
+                # docid-asc
+                v, idx = topk_lowest_index(torch.where(live, score, NEG_INF),
+                                           kk)
+                gv[r0:r1, :kk] = v
+                gi[r0:r1, :kk] = torch.gather(ki.long(), 1, idx)
+                thresh = score_tile(scorer, tau.to(torch.float32), w)
+                resolved[r0:r1] = ~overflow | (gv[r0:r1, k - 1] > thresh)
+                get_tracer().add("phrase.lazy_chunks")
+        return gv, gi, resolved
 
     def _run_lazyhost(self, g: Group, a: dict, k: int, scorer: str):
         """Lazy route without device caps (the reference's
         ``_run_phrase_lazy_batch`` host loop): candidates ranked on the
         device by bound, verified on the host with the numpy verifier in
         bound order, stopping once the k-th score strictly beats the next
-        bound; an unresolved query reruns alone as a compound group."""
-        seg, B = self.seg, g.B
-        model = g.ctx["model"]
-        C2 = g.ctx["C2"]
+        bound; an unresolved query reruns alone as a compound group. Rows
+        run in workspace-sized chunks, as in _run_lazyph; each chunk's
+        candidates come to the host in one read (``phrase.syncs``)."""
+        B, C2 = g.B, g.ctx["C2"]
+        C = min(C2, self.seg.n_windows * WINDOW_SIZE)
         get_metrics().count("phrase.host_verify")
-        mf, mo, bound = self._member_tiles(g, a)
-        kb, ki = topk_lowest_index(bound, min(C2, bound.shape[1]))
-        overflow = ((bound > 0).sum(dim=1) > C2).cpu().numpy()
-        gids, bounds = ki.cpu().numpy(), kb.cpu().numpy()
-        pf = torch.stack([gather_cols(f, ki) for f in mf], -1).to(
-            torch.int32).cpu().numpy()
-        po = torch.stack([gather_cols(o, ki) for o in mo], -1).cpu().numpy()
-        weights = g.arrays["weights"]
         out_v = np.full((B, k), NEG_INF, np.float32)
         out_i = np.zeros((B, k), np.int64)
-        # the host verifier, and a fallback's own verification in it
-        with trace("exec.phrase"):
-            for bi, (_, plan) in enumerate(g.members):
-                acc_v = np.zeros(0, np.float32)
-                acc_i = np.zeros(0, np.int64)
-                n_valid = int((bounds[bi] > 0).sum())
-                resolved = n_valid == 0
-                for c0 in range(0, n_valid, HOST_VERIFY_CHUNK):
-                    hi = min(c0 + HOST_VERIFY_CHUNK, n_valid)
-                    pfreq = verify_phrase_candidates(
-                        seg.positions, np.ones(hi - c0, bool), pf[bi, c0:hi],
-                        po[bi, c0:hi],
-                    )
-                    gid = gids[bi, c0:hi]
-                    keep = pfreq > 0
-                    if self._deleted_np is not None:
-                        keep &= ~self._deleted_np[gid]
-                    sc = model.score_tile(
-                        pfreq[keep].astype(np.float32), np.float32(weights[bi])
-                    ).astype(np.float32)
-                    acc_v = np.concatenate([acc_v, sc])
-                    acc_i = np.concatenate([acc_i, gid[keep]])
-                    order = np.lexsort((acc_i, -acc_v))[: 2 * k]
-                    acc_v, acc_i = acc_v[order], acc_i[order]
-                    if hi == n_valid:
-                        # every pulled candidate verified: exact unless cut
-                        resolved = not (bool(overflow[bi]) or n_valid >= C2)
-                    elif len(acc_v) >= k:
-                        nxt = float(model.score_tile(
-                            np.float32(bounds[bi, hi]), np.float32(weights[bi])
-                        ))
-                        if nxt < acc_v[k - 1]:
-                            resolved = True
-                            break
-                if not resolved:
-                    acc_v, acc_i = self._dense_phrase_fallback(plan, g.ctx, k,
-                                                               scorer)
-                nkeep = min(len(acc_v), k)
-                out_v[bi, :nkeep] = acc_v[:nkeep]
-                out_i[bi, :nkeep] = acc_i[:nkeep]
+        rows = self._lazy_rows(g, C, False)
+        tracer = get_tracer()
+        for r0 in range(0, B, rows):
+            r1 = min(r0 + rows, B)
+            with self._lazy_lock:
+                bound, _, gather = self._lazy_chunk(g, a, r0, r1, C, False)
+                kb, ki = topk_lowest_index(bound, C)
+                overflow = (bound > 0).sum(dim=1) > C2
+                pf, po = gather(ki)
+                host = [t.cpu().numpy() for t in (overflow, ki, kb, pf, po)]
+            tracer.add("phrase.syncs")
+            tracer.add("phrase.lazy_chunks")
+            # the host verifier, and a fallback's own verification in it
+            with trace("exec.phrase"):
+                for j, bi in enumerate(range(r0, r1)):
+                    out_v[bi], out_i[bi] = self._host_verify_row(
+                        g, bi, *(h[j] for h in host), k, scorer)
         return self._put(out_v), self._put(out_i)
+
+    def _host_verify_row(self, g: Group, bi: int, overflow, gids, bounds,
+                         pf, po, k: int, scorer: str):
+        """One row of the lazy host route: its candidates (ids, bounds,
+        member freqs and offsets, best bound first) verified in chunks of
+        HOST_VERIFY_CHUNK until the k-th score beats the next bound; a
+        row left unresolved runs the compound fallback. Returns its (k,)
+        scores (-inf past the end) and local ids."""
+        model, C2 = g.ctx["model"], g.ctx["C2"]
+        weight = np.float32(g.arrays["weights"][bi])
+        acc_v = np.zeros(0, np.float32)
+        acc_i = np.zeros(0, np.int64)
+        n_valid = int((bounds > 0).sum())
+        resolved = n_valid == 0
+        for c0 in range(0, n_valid, HOST_VERIFY_CHUNK):
+            hi = min(c0 + HOST_VERIFY_CHUNK, n_valid)
+            pfreq = verify_phrase_candidates(
+                self.seg.positions, np.ones(hi - c0, bool), pf[c0:hi],
+                po[c0:hi],
+            )
+            gid = gids[c0:hi]
+            keep = pfreq > 0
+            if self._deleted_np is not None:
+                keep &= ~self._deleted_np[gid]
+            sc = model.score_tile(pfreq[keep].astype(np.float32),
+                                  weight).astype(np.float32)
+            acc_v = np.concatenate([acc_v, sc])
+            acc_i = np.concatenate([acc_i, gid[keep]])
+            order = np.lexsort((acc_i, -acc_v))[: 2 * k]
+            acc_v, acc_i = acc_v[order], acc_i[order]
+            if hi == n_valid:
+                # every pulled candidate verified: exact unless cut
+                resolved = not (bool(overflow) or n_valid >= C2)
+            elif len(acc_v) >= k:
+                nxt = float(model.score_tile(np.float32(bounds[hi]), weight))
+                if nxt < acc_v[k - 1]:
+                    resolved = True
+                    break
+        if not resolved:
+            acc_v, acc_i = self._dense_phrase_fallback(g.members[bi][1],
+                                                       g.ctx, k, scorer)
+        v = np.full(k, NEG_INF, np.float32)
+        i = np.zeros(k, np.int64)
+        nkeep = min(len(acc_v), k)
+        v[:nkeep], i[:nkeep] = acc_v[:nkeep], acc_i[:nkeep]
+        return v, i
 
     def _finish_phrase_lazy(self, g: Group, gv, gi, resolved, k, scorer):
         """Rerun each unresolved query of a lazyph group alone (rare)."""
@@ -1202,7 +1355,10 @@ class Executor:
             vals = torch.cat([o[0] for o in outs]).cpu().numpy()
             ids = torch.cat([o[1] for o in outs]).cpu().numpy()
             flags = [o[2] for o in outs if o[2] is not None]
-            resolved = torch.cat(flags).cpu().numpy() if flags else None
+            resolved = None
+            if flags:  # the lazy groups' resolved read
+                get_tracer().add("phrase.syncs")
+                resolved = torch.cat(flags).cpu().numpy()
         row = frow = 0
         for g, o in zip(groups, outs):
             gv, gi = vals[row : row + g.B], ids[row : row + g.B]

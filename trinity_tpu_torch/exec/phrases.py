@@ -18,10 +18,10 @@ compare of the anchor's lanes against each member's.
 What differs in torch: the compare cube (candidates x anchor lanes x
 member lanes) is materialised, not fused, so candidates run in chunks
 under a byte budget; dead candidates are dropped before any decode (one
-host sync for the live count, where the reference skipped dead chunks
-with ``lax.cond``); and the window loops run as far as the longest run
-in the chunk needs (one more sync), as the reference's data-dependent
-trip count does.
+host sync for the live count of each slice of LIVE_SLICE candidates,
+where the reference skipped dead chunks with ``lax.cond``); and the
+window loops run as far as the longest run in the chunk needs (one more
+sync), as the reference's data-dependent trip count does.
 
 The host half — ``FCAP_LADDER`` and its helpers, ``collect_phrases``,
 ``fcap_bucket`` and the numpy verifier ``verify_phrase_candidates`` — is
@@ -34,6 +34,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from trinity_tpu_torch.utils.timings import get_tracer
 
 # ------------------------------------------------------------ host half
 # Copied from trinity_tpu/exec/phrases.py.
@@ -142,6 +144,9 @@ def verify_phrase_candidates(
 # ---------------------------------------------------------- device half
 _U32 = 0xFFFFFFFF
 _WL = WINDOW_GROUPS * TILE_LANES  # lanes per window step
+# candidates whose live index one nonzero builds (at most 4 MiB of int64),
+# so the index's memory does not grow with how many candidates are live
+LIVE_SLICE = 1 << 19
 
 
 def _decode_groups(hit_pw, hit_off, poc, g_off, ng, lmax):
@@ -176,7 +181,9 @@ def _member_lanes(hit_pw, hit_off, poc, pfc, fcap):
 
 
 def _n_windows(poc, pfc, fcap):
-    """Window steps covering the chunk's longest run (host sync)."""
+    """Window steps covering the chunk's longest run (a host sync, counted
+    in ``phrase.syncs``)."""
+    get_tracer().add("phrase.syncs")
     end = int(((poc & 127) + pfc).max())
     return min(-(-end // _WL), _window_count(fcap))
 
@@ -249,21 +256,30 @@ def verify_phrases_device(
     in the segment, so a decode never truncates a run. Live candidates run
     in chunks: bytes_budget bounds the decoded lanes (8 bytes a lane, as
     the reference counts them), vol_budget the elements of one compare cube
-    (candidates x anchor lanes x widest member's lanes)."""
+    (candidates x anchor lanes x widest member's lanes). Each chunk's
+    freqs and offsets widen to int64 as it runs. Tracer counters:
+    ``phrase.candidates`` (the live candidates), ``phrase.syncs`` (each
+    slice's live count and each window trip count)."""
     lead = valid.shape
     k = freqs.shape[-1]
     if k < 2 or len(fcaps) != k:
         raise ValueError("a phrase has at least 2 members, one fcap each")
     n = valid.numel()
-    pf2 = freqs.reshape(n, k).to(torch.int64)
-    po2 = offs.reshape(n, k).to(torch.int64) & _U32
+    flat = valid.reshape(n)
+    pf2 = freqs.reshape(n, k)
+    po2 = offs.reshape(n, k)
     out = torch.zeros(n, dtype=torch.int32, device=valid.device)
-    live = torch.nonzero(valid.reshape(n)).reshape(-1)
+    tracer = get_tracer()
     bytes_per = 8 * sum(_win_lanes(f) for f in fcaps)
     vol = _win_lanes(fcaps[0]) * max(_win_lanes(f) for f in fcaps[1:])
     chunk = max(128, min(bytes_budget // bytes_per, vol_budget // vol))
-    for c0 in range(0, len(live), chunk):
-        idx = live[c0 : c0 + chunk]
-        out[idx] = _live_chunk(hit_pw, hit_off, pf2[idx], po2[idx],
-                               fcaps).to(torch.int32)
+    for s0 in range(0, n, LIVE_SLICE):
+        live = torch.nonzero(flat[s0 : s0 + LIVE_SLICE]).reshape(-1).add_(s0)
+        tracer.add("phrase.syncs")
+        tracer.add("phrase.candidates", len(live))
+        for c0 in range(0, len(live), chunk):
+            idx = live[c0 : c0 + chunk]
+            out[idx] = _live_chunk(hit_pw, hit_off, pf2[idx].to(torch.int64),
+                                   po2[idx].to(torch.int64) & _U32,
+                                   fcaps).to(torch.int32)
     return out.reshape(lead)

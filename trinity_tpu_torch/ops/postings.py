@@ -181,7 +181,7 @@ def decode_cells(bmeta, planes, cell_start, cell_nblocks, with_offsets=False):
 
 def materialize_freq_tiles_ref(
     bmeta, planes, cell_start, cell_nblocks, window_base=None,
-    with_offsets=False, out=None,
+    with_offsets=False, out=None, offs_out=None,
 ):
     """Plain torch version of the decode kernel (same contract as
     materialize_freq_tiles). Runs on any device."""
@@ -209,7 +209,11 @@ def materialize_freq_tiles_ref(
     offs[idx] = (((off[valid] & _U32) ^ 0x80000000) - 0x80000000).to(
         torch.int32
     )
-    return tiles, offs.reshape(W, T, TILE, TILE)
+    offs = offs.reshape(W, T, TILE, TILE)
+    if offs_out is not None:
+        _check_offs_out(offs_out, W, T, dev)
+        offs = offs_out.copy_(offs)
+    return tiles, offs
 
 
 # ------------------------------------------------------------ byte counts
@@ -260,6 +264,18 @@ def _check_out(out, W, T, dev):
         raise ValueError("out: each tile must be contiguous")
 
 
+def _check_offs_out(offs_out, W, T, dev):
+    """A hit-offsets destination: contiguous i32 (W, T, 128, 128) on `dev`,
+    16-byte aligned (e.g. a view of a workspace)."""
+    if offs_out.dtype != torch.int32 or offs_out.device != dev:
+        raise TypeError(f"offs_out: expected int32 on {dev}")
+    if tuple(offs_out.shape) != (W, T, TILE, TILE):
+        raise ValueError(f"offs_out: shape {tuple(offs_out.shape)}, "
+                         f"expected {(W, T, TILE, TILE)}")
+    if not offs_out.is_contiguous() or offs_out.data_ptr() % 16:
+        raise ValueError("offs_out: must be contiguous and 16-byte aligned")
+
+
 def materialize_freq_tiles(
     bmeta: torch.Tensor,  # (rows, 128) i32 (pack_block_meta)
     planes: torch.Tensor,  # (R_pad, 128) i32 bit-view of u32, padded
@@ -268,18 +284,21 @@ def materialize_freq_tiles(
     window_base: torch.Tensor = None,  # (W,) i32 window ids (default arange)
     with_offsets: bool = False,
     out: torch.Tensor = None,  # freq destination (W, T, 128, 128) f32 view
+    offs_out: torch.Tensor = None,  # offsets destination, contiguous i32
 ):
     """Returns f32[W, T, 128, 128] frequency tiles (0 = term absent); with
     with_offsets also i32[W, T, 128, 128] hits-offset tiles. The freq
     tiles are written into `out` when given (any view whose tiles are each
-    contiguous, e.g. ``cache[i:i + T].transpose(0, 1)``) and returned.
+    contiguous, e.g. ``cache[i:i + T].transpose(0, 1)``) and returned; the
+    offsets into `offs_out` when given (a contiguous view, e.g. of a
+    workspace).
 
     On CUDA tensors this launches the decode kernel (csrc/postings.cu); on
     CPU tensors it runs materialize_freq_tiles_ref."""
     if planes.device.type != "cuda":
         return materialize_freq_tiles_ref(
             bmeta, planes, cell_start, cell_nblocks, window_base,
-            with_offsets, out,
+            with_offsets, out, offs_out,
         )
     from trinity_tpu_torch.utils import kernels
 
@@ -303,10 +322,12 @@ def materialize_freq_tiles(
         strides = out.stride()[:2]
         if out.data_ptr() % 16 or strides[0] % 4 or strides[1] % 4:
             raise ValueError("out: every tile must be 16-byte aligned")
-    offs = (
-        torch.empty((W, T, TILE, TILE), dtype=torch.int32, device=dev)
-        if with_offsets else None
-    )
+    offs = None
+    if with_offsets and offs_out is not None:
+        _check_offs_out(offs_out, W, T, dev)
+        offs = offs_out
+    elif with_offsets:
+        offs = torch.empty((W, T, TILE, TILE), dtype=torch.int32, device=dev)
     if W * T:
         kernels.launch(
             "decode", "trin_decode_tiles",

@@ -14,19 +14,27 @@ import math
 import torch
 
 
-def compact_mask(kept: torch.Tensor, C2: int):
+def compact_mask(kept: torch.Tensor, C2: int, out=None):
     """Compact a (B, N) bool mask into (B, C2) member indices in ascending
     order. Returns (ki (B, C2) i32, valid (B, C2) bool); slots past the
-    count are invalid and hold index 0."""
+    count are invalid and hold index 0. out: (ki (B, C2 + 1) i32, valid
+    (B, C2) bool) to write into (e.g. views of a workspace); ki is then
+    the first C2 columns of out[0]."""
     B, N = kept.shape
     dev = kept.device
     rank = torch.cumsum(kept.to(torch.int64), dim=1)  # inclusive
     slot = torch.where(kept & (rank <= C2), rank - 1, C2)  # C2 = discard
-    ki = torch.zeros((B, C2 + 1), dtype=torch.int32, device=dev)
+    if out is None:
+        ki = torch.zeros((B, C2 + 1), dtype=torch.int32, device=dev)
+        valid = torch.empty((B, C2), dtype=torch.bool, device=dev)
+    else:
+        ki, valid = out
+        ki.zero_()
     ki.scatter_(1, slot, torch.arange(N, dtype=torch.int32,
                                       device=dev).expand(B, N))
-    valid = torch.arange(C2, device=dev)[None, :] < rank[:, -1:]
-    return torch.where(valid, ki[:, :C2], 0), valid
+    torch.lt(torch.arange(C2, device=dev)[None, :], rank[:, -1:], out=valid)
+    # slots past the count were never written: they still hold 0
+    return ki[:, :C2], valid
 
 
 def gather_cols(arr: torch.Tensor, ki: torch.Tensor) -> torch.Tensor:
@@ -35,10 +43,11 @@ def gather_cols(arr: torch.Tensor, ki: torch.Tensor) -> torch.Tensor:
 
 
 def bound_select_candidates(bound: torch.Tensor, C2: int, vmax: int,
-                            assume_no_overflow: bool = False):
+                            assume_no_overflow: bool = False, out=None):
     """Exact top-C2 selection by (bound desc, docid asc).
 
-    bound: (B, N) integer tensor in [0, vmax]; 0 means non-candidate.
+    bound: (B, N) tensor of integer values in [0, vmax]; 0 means
+    non-candidate. out: compact_mask's, for ki and valid.
     Returns (ki (B, C2) i32 docids ascending, valid (B, C2) bool, tau (B,)
     i32, overflow (B,) bool). The selected set equals the top C2 by (bound
     desc, docid asc). When a row overflows, tau is the MAXIMUM UNPULLED
@@ -49,7 +58,7 @@ def bound_select_candidates(bound: torch.Tensor, C2: int, vmax: int,
     B, _ = bound.shape
     dev = bound.device
     if assume_no_overflow:
-        ki, valid = compact_mask(bound > 0, C2)
+        ki, valid = compact_mask(bound > 0, C2, out)
         z = torch.zeros(B, dtype=torch.int32, device=dev)
         return ki, valid, z, z > 0
     # tau = max{v : count(bound >= v) > C2}: binary search with the
@@ -69,5 +78,5 @@ def bound_select_candidates(bound: torch.Tensor, C2: int, vmax: int,
     eq = bound == tau[:, None]
     kept = above | (eq & (torch.cumsum(eq.to(torch.int64), dim=1)
                           <= lim[:, None]))
-    ki, valid = compact_mask(kept, C2)
+    ki, valid = compact_mask(kept, C2, out)
     return ki, valid, tau.to(torch.int32), overflow
